@@ -1,0 +1,503 @@
+"""Device snapshot retrieval: DeltaGraph plans on packed bitmaps, in torch.
+
+The host planner (Dijkstra / Steiner on the skeleton) stays as-is; this
+module replaces the *apply* phase with device work:
+
+1. every plan step — delta edge (either direction) or partial eventlist —
+   collapses to one ``(adds, dels)`` bitmap pair (exact because element ids
+   are never reused, §3.1, so membership toggles at most add→del once);
+2. a singlepoint plan is therefore a K-step chain, landed by the
+   delta-apply kernels in **one pass** over the bitmap (K+2 instead of 3K
+   words of device-memory traffic), optionally with the analytics fused in;
+3. a multipoint plan runs wave by wave, all sibling branches of a wave in
+   one batched chain launch, and can land its results in ``GraphPool``.
+
+Every entry point takes ``device=`` (default ``"cuda"``): CUDA tensors go
+through the hand-written kernels, ``device="cpu"`` through their plain
+PyTorch versions; a missing card raises.  Packed words travel as ``int32``
+tensors; results come back as numpy bool masks.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .staging import DeviceStager, host_tensor, stream_chunk_k
+from ..core import bitmaps as bmod
+from ..core import planir
+from ..core.deltagraph import DeltaGraph, Plan
+from ..core.events import (EV_DEL_EDGE, EV_DEL_NODE, EV_NEW_EDGE, EV_NEW_NODE)
+from ..core.query import NO_ATTRS
+from ..kernels import (FusedOut, delta_apply_chain, delta_apply_chain_batched,
+                       delta_apply_fused, segment_sum)
+from ..kernels.policy import resolve_device
+from ..storage import columnar as col
+
+
+# ---------------------------------------------------------------------------
+# plan → (adds, dels) index pairs
+# ---------------------------------------------------------------------------
+
+_fit_words = bmod.np_fit_words
+
+
+def _elist_pair(comps, forward: bool, rng) -> tuple[np.ndarray, ...]:
+    s = comps[col.ELIST_STRUCT]
+    t = s["time"]
+    m = np.ones(t.shape, bool) if rng is None else (t > rng[0]) & (t <= rng[1])
+    et, sl = s["etype"][m], s["slot"][m]
+
+    def pair(new_code, del_code):
+        new_s = sl[et == new_code]
+        del_s = sl[et == del_code]
+        if forward:
+            adds = np.setdiff1d(new_s, del_s)   # add-then-del nets to del
+            dels = del_s
+        else:
+            adds = np.setdiff1d(del_s, new_s)   # un-delete revives
+            dels = new_s
+        return adds.astype(np.int32), dels.astype(np.int32)
+
+    na, nd = pair(EV_NEW_NODE, EV_DEL_NODE)
+    ea, ed = pair(EV_NEW_EDGE, EV_DEL_EDGE)
+    return na, nd, ea, ed
+
+
+def _recent_pair(dg: DeltaGraph, forward: bool, rng) -> tuple[np.ndarray, ...]:
+    ev = dg.recent
+    t = ev.time
+    m = np.ones(t.shape, bool) if rng is None else (t > rng[0]) & (t <= rng[1])
+    et, sl = ev.etype[m], ev.slot[m]
+
+    def pair(new_code, del_code):
+        new_s = sl[et == new_code]
+        del_s = sl[et == del_code]
+        if forward:
+            return (np.setdiff1d(new_s, del_s).astype(np.int32),
+                    del_s.astype(np.int32))
+        return (np.setdiff1d(del_s, new_s).astype(np.int32),
+                new_s.astype(np.int32))
+
+    na, nd = pair(EV_NEW_NODE, EV_DEL_NODE)
+    ea, ed = pair(EV_NEW_EDGE, EV_DEL_EDGE)
+    return na, nd, ea, ed
+
+
+def plan_to_chain(dg: DeltaGraph, plan: Plan, pool=None
+                  ) -> tuple[tuple[np.ndarray, np.ndarray], list[tuple]]:
+    """Lower a *singlepoint* plan into (base bitmaps, [(na,nd,ea,ed), ...])."""
+    assert len(plan.targets) == 1, "use per-branch lowering for multipoint"
+    steps = plan.steps
+    src = steps[0]
+    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+    if src.action[0] == "empty":
+        base_n = np.zeros(bmod.num_words(U_n), np.uint32)
+        base_e = np.zeros(bmod.num_words(U_e), np.uint32)
+    elif src.action[0] == "mat":
+        base_n, base_e = pool._resolve_masks(src.action[1])
+        base_n = _fit_words(base_n, bmod.num_words(U_n))
+        base_e = _fit_words(base_e, bmod.num_words(U_e))
+    elif src.action[0] == "current":
+        st = dg._last_leaf_state.resized(dg.universe)
+        base_n = bmod.np_pack(st.node_mask)
+        base_e = bmod.np_pack(st.edge_mask)
+        na, nd, ea, ed = _recent_pair(dg, True, None)
+        chain0 = [(na, nd, ea, ed)]
+    else:  # pragma: no cover
+        raise ValueError(src.action)
+    chain: list[tuple] = [] if src.action[0] != "current" else chain0
+    for st in steps[1:]:
+        kind = st.action[0]
+        if kind == "delta":
+            d = dg._fetch_delta(st.action[1], NO_ATTRS)
+            if st.action[2]:
+                chain.append((d.node_add, d.node_del, d.edge_add, d.edge_del))
+            else:
+                chain.append((d.node_del, d.node_add, d.edge_del, d.edge_add))
+        elif kind == "elist":
+            comps = dg._fetch_elist(st.action[1], NO_ATTRS)
+            chain.append(_elist_pair(comps, st.action[2], st.action[3]))
+        elif kind == "recent":
+            chain.append(_recent_pair(dg, st.action[2], st.action[3]))
+        elif kind == "noop":
+            pass
+        else:  # pragma: no cover
+            raise ValueError(st.action)
+    return (base_n, base_e), chain
+
+
+# ---------------------------------------------------------------------------
+# single-device execution
+# ---------------------------------------------------------------------------
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return host_tensor(a).to(device)
+
+
+def _stack_bitmaps(chain_idx: list[np.ndarray], U: int,
+                   device: torch.device) -> torch.Tensor:
+    W = bmod.num_words(U)
+    if not chain_idx:
+        return torch.zeros((0, W), dtype=torch.int32, device=device)
+    rows = [bmod.np_from_indices(ix, U) for ix in chain_idx]
+    return _to_device(np.stack(rows), device)
+
+
+def execute_singlepoint_torch(dg: DeltaGraph, t: int, *, device="cuda",
+                              pool=None, use_current: bool = True
+                              ) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (node_mask, edge_mask) bool arrays, computed on ``device``."""
+    dev = resolve_device(device)
+    plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
+    (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
+    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+    n_adds = _stack_bitmaps([c[0] for c in chain], U_n, dev)
+    n_dels = _stack_bitmaps([c[1] for c in chain], U_n, dev)
+    e_adds = _stack_bitmaps([c[2] for c in chain], U_e, dev)
+    e_dels = _stack_bitmaps([c[3] for c in chain], U_e, dev)
+    out_n = delta_apply_chain(_to_device(base_n, dev), n_adds, n_dels)
+    out_e = delta_apply_chain(_to_device(base_e, dev), e_adds, e_dels)
+    nm = bmod.np_unpack(bmod.to_numpy_words(out_n), U_n)
+    em = bmod.np_unpack(bmod.to_numpy_words(out_e), U_e)
+    em &= ~dg.universe.edge_transient[:U_e]
+    nm &= ~dg.universe.node_transient[:U_n]
+    return nm, em
+
+
+# ---------------------------------------------------------------------------
+# fused retrieval + analytics (single pass over the landed bitmaps)
+# ---------------------------------------------------------------------------
+
+
+class SnapshotAnalytics:
+    """Push-style analytics emitted by the fused delta-apply kernel: the
+    node/edge :class:`FusedOut` partials from the same pass that landed the
+    chain.  ``node.live_count()`` / ``edge.live_count()`` are the snapshot
+    order and size; ``edge.live`` feeds :func:`degrees` (per-node degree via
+    the segment_sum kernel); ``node.weighted_total()`` is the PageRank push
+    mass when per-slot contributions were supplied."""
+
+    def __init__(self, node: FusedOut, edge: FusedOut, dg: DeltaGraph):
+        self.node = node
+        self.edge = edge
+        self._dg = dg
+
+    def num_nodes(self) -> int:
+        return int(self.node.live_count())
+
+    def num_edges(self) -> int:
+        return int(self.edge.live_count())
+
+    def degrees(self) -> np.ndarray:
+        """Per-node degree (both endpoints of live edges) reduced from the
+        fused kernel's unpacked edge indicator by the segment_sum kernel —
+        no host round-trip between apply and reduction."""
+        uni = self._dg.universe
+        E, N = uni.num_edges, uni.num_nodes
+        live = self.edge.live[:E][:, None]
+        deg = (segment_sum(live, uni.edge_src[:E], N)
+               + segment_sum(live, uni.edge_dst[:E], N))
+        return deg.reshape(-1).cpu().numpy()
+
+
+def _transient_step(dg: DeltaGraph, U_n: int, U_e: int):
+    """Transient slots cleared as one more chain step (zero adds, packed
+    transient dels) — fused analytics then see exactly the returned masks."""
+    return (bmod.np_pack(dg.universe.node_transient[:U_n]),
+            bmod.np_pack(dg.universe.edge_transient[:U_e]))
+
+
+def execute_singlepoint_fused(dg: DeltaGraph, t: int, *,
+                              node_weights=None, device="cuda",
+                              pool=None, use_current: bool = True
+                              ) -> tuple[np.ndarray, np.ndarray,
+                                         SnapshotAnalytics]:
+    """Single-point retrieval with analytics fused into the apply pass.
+
+    Same plan and chain lowering as :func:`execute_singlepoint_torch`, but
+    landed by the fused kernel: while each thread holds its word's landed
+    chain state in registers it also emits popcount/degree partials and
+    (optionally, via ``node_weights [num_nodes] f32``) a PageRank-style
+    push accumulator — the separate analytics sweep over the mask is gone.
+    Transient-slot clearing folds into the chain as a final delete step, so
+    analytics and the returned bool masks agree bit-for-bit.
+    """
+    dev = resolve_device(device)
+    plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
+    (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
+    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+    W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
+    tn, te = _transient_step(dg, U_n, U_e)
+    n_adds = np.stack([bmod.np_from_indices(c[0], U_n) for c in chain]
+                      + [np.zeros(W_n, np.uint32)])
+    n_dels = np.stack([bmod.np_from_indices(c[1], U_n) for c in chain] + [tn])
+    e_adds = np.stack([bmod.np_from_indices(c[2], U_e) for c in chain]
+                      + [np.zeros(W_e, np.uint32)])
+    e_dels = np.stack([bmod.np_from_indices(c[3], U_e) for c in chain] + [te])
+    w = None
+    if node_weights is not None:
+        w = _to_device(np.asarray(node_weights, np.float32).reshape(-1), dev)
+    fn = delta_apply_fused(_to_device(base_n, dev), _to_device(n_adds, dev),
+                           _to_device(n_dels, dev), w)
+    fe = delta_apply_fused(_to_device(base_e, dev), _to_device(e_adds, dev),
+                           _to_device(e_dels, dev))
+    nm = bmod.np_unpack(bmod.to_numpy_words(fn.mask), U_n)
+    em = bmod.np_unpack(bmod.to_numpy_words(fe.mask), U_e)
+    return nm, em, SnapshotAnalytics(fn, fe, dg)
+
+
+# ---------------------------------------------------------------------------
+# IR DAG execution: batched multi-snapshot apply
+# ---------------------------------------------------------------------------
+
+_EMPTY_PAIR = (np.zeros(0, np.int32),) * 4
+
+
+def _node_pair(dg: DeltaGraph, op, get_payload) -> tuple[np.ndarray, ...]:
+    """Lower one apply op to an ``(n_add, n_del, e_add, e_del)`` index
+    quadruple; payloads come through ``get_payload`` (memoized per pid,
+    possibly prefetched)."""
+    if isinstance(op, planir.ApplyDelta):
+        d = get_payload("delta", op.pid)
+        if op.forward:
+            return d.node_add, d.node_del, d.edge_add, d.edge_del
+        return d.node_del, d.node_add, d.edge_del, d.edge_add
+    if isinstance(op, planir.ApplyElist):
+        return _elist_pair(get_payload("elist", op.pid), op.forward, op.rng)
+    if isinstance(op, planir.ApplyRecent):
+        return _recent_pair(dg, op.forward, op.rng)
+    if isinstance(op, planir.Noop):
+        return _EMPTY_PAIR
+    raise ValueError(f"not an apply op: {op}")  # pragma: no cover
+
+
+def _make_payload_resolver(dg: DeltaGraph, ir: Plan, prefetch):
+    """Memoized payload access for the structure-only backend; with a
+    Prefetcher, every Fetch node's (small, struct-component) key list is
+    submitted up front — the worker threads fetch *and decode* the blobs,
+    so store gets and codec decompression both overlap kernel execution
+    and the host-fetch path consumes ready arrays."""
+    futs: dict[tuple, Any] = {}
+    if prefetch is not None:
+        for n in ir.nodes:
+            if not isinstance(n.op, planir.Fetch):
+                continue
+            fk = (n.op.kind, n.op.pid)
+            if fk in futs:
+                continue
+            if n.op.kind == "delta":
+                keys, na, ea = dg._delta_keys(n.op.pid, NO_ATTRS)
+                allk, meta = keys + na + ea, (len(keys), len(na))
+                decode = (lambda blobs, meta=meta:
+                          dg._decode_delta(blobs, *meta))
+            else:
+                allk = dg._elist_keys(n.op.pid, NO_ATTRS)
+                decode = (lambda blobs, allk=allk:
+                          dg._decode_elist(allk, blobs))
+            futs[fk] = prefetch.submit(allk, decode=decode)
+    payloads: dict[tuple, Any] = {}
+
+    def get_payload(kind: str, pid: int):
+        fk = (kind, pid)
+        if fk not in payloads:
+            fut = futs.pop(fk, None)
+            if fut is not None:
+                payloads[fk] = fut.result()   # decoded in the worker
+            else:
+                payloads[fk] = (dg._fetch_delta(pid, NO_ATTRS)
+                                if kind == "delta"
+                                else dg._fetch_elist(pid, NO_ATTRS))
+        return payloads[fk]
+
+    return get_payload
+
+
+def _np_apply_pair(bn: np.ndarray, be: np.ndarray, pair, U_n: int, U_e: int):
+    na, nd, ea, ed = pair
+    bn = (bn & ~bmod.np_from_indices(nd, U_n)) | bmod.np_from_indices(na, U_n)
+    be = (be & ~bmod.np_from_indices(ed, U_e)) | bmod.np_from_indices(ea, U_e)
+    return bn, be
+
+
+def _apply_chains_streamed(bases_n: torch.Tensor, bases_e: torch.Tensor,
+                           chains, U_n: int, U_e: int, *,
+                           device: torch.device, prefetch=None,
+                           stager: DeviceStager | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Land B index-quad chains over the node+edge planes ``bases_n [B,
+    W_n]`` / ``bases_e [B, W_e]`` (device words), double-buffered.
+
+    ``chains[i]`` is a list of ``(na, nd, ea, ed)`` slot-index quads.  When
+    the common chain length exceeds the stream chunk
+    (``REPRO_STREAM_CHUNK``, default 8) the ``[B, K, W]`` plane stacks are
+    never materialized whole: the :class:`DeviceStager` builds (codec
+    indices → packed planes) and copies chunk *i+1* while chunk *i*'s
+    kernels run.  The chain is a left fold of bitwise steps, so the
+    chunked landing is bit-identical to the monolithic call."""
+    W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
+    B = len(chains)
+    K = max(len(c) for c in chains)
+    if K == 0:
+        return bases_n, bases_e
+
+    def build(lo: int, hi: int):
+        k = hi - lo
+        an = np.zeros((B, k, W_n), np.uint32)
+        dn = np.zeros((B, k, W_n), np.uint32)
+        ae = np.zeros((B, k, W_e), np.uint32)
+        de = np.zeros((B, k, W_e), np.uint32)
+        for i, chain in enumerate(chains):
+            for j in range(lo, min(hi, len(chain))):
+                na, nd, ea, ed = chain[j]
+                an[i, j - lo] = bmod.np_from_indices(na, U_n)
+                dn[i, j - lo] = bmod.np_from_indices(nd, U_n)
+                ae[i, j - lo] = bmod.np_from_indices(ea, U_e)
+                de[i, j - lo] = bmod.np_from_indices(ed, U_e)
+        return an, dn, ae, de
+
+    ck = stream_chunk_k()
+    if ck < 1 or K <= ck:
+        an, dn, ae, de = (_to_device(a, device) for a in build(0, K))
+        return (delta_apply_chain_batched(bases_n, an, dn),
+                delta_apply_chain_batched(bases_e, ae, de))
+
+    if stager is None:
+        stager = DeviceStager(prefetcher=prefetch, device=device)
+    nch = -(-K // ck)
+
+    def apply_chunk(carry, dev):
+        bn, be = carry
+        an, dn, ae, de = dev
+        return (delta_apply_chain_batched(bn, an, dn),
+                delta_apply_chain_batched(be, ae, de))
+
+    return stager.stream(
+        nch, lambda i: build(i * ck, min((i + 1) * ck, K)), apply_chunk,
+        (bases_n, bases_e))
+
+
+def execute_ir_torch(dg: DeltaGraph, ir: Plan, *, device="cuda",
+                     pool=None, prefetch=None,
+                     stager: DeviceStager | None = None
+                     ) -> dict[Any, tuple[np.ndarray, np.ndarray]]:
+    """Execute a plan IR (structure-only) on the device bitmap backend.
+
+    The DAG is decomposed into maximal linear **segments** between
+    boundaries (sources, Fork nodes, targets); every wave batches all
+    ready segments — sibling branches after a Fork in particular — into a
+    single batched ``delta_apply_chain`` launch over stacked bit-planes, so
+    B branches cost one pass instead of B sequential chains.  Intermediate
+    states stay on the device between waves.
+
+    Returns ``{target: (node_mask, edge_mask)}`` bool arrays.
+    """
+    dev = resolve_device(device)
+    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+    W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
+    byid = {n.nid: n for n in ir.nodes}
+    get_payload = _make_payload_resolver(dg, ir, prefetch)
+
+    # state topology: apply children per state node; forks pass through
+    children: dict[int, list[int]] = {}
+    fork_child: dict[int, int] = {}
+    for n in ir.nodes:
+        if isinstance(n.op, planir.APPLY_OPS):
+            for d in n.deps:
+                if not isinstance(byid[d].op, planir.Fetch):
+                    children.setdefault(d, []).append(n.nid)
+        elif isinstance(n.op, planir.Fork):
+            fork_child[n.deps[0]] = n.nid
+
+    target_nids = set(ir.targets.values())
+
+    def is_boundary(nid: int) -> bool:
+        return (nid in target_nids or nid in fork_child
+                or len(children.get(nid, ())) != 1)
+
+    # source values (built on the host — one packed bitmap each)
+    vals: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+    frontier: list[int] = []
+    for n in ir.nodes:
+        op = n.op
+        if isinstance(op, planir.Source):
+            if op.kind == "empty":
+                v = (np.zeros(W_n, np.uint32), np.zeros(W_e, np.uint32))
+            elif op.kind == "mat":
+                assert pool is not None, "materialized plan needs a GraphPool"
+                pn, pe = pool._resolve_masks(op.gid)
+                v = (_fit_words(pn, W_n), _fit_words(pe, W_e))
+            else:  # current = last leaf + recent events
+                st = dg._last_leaf_state.resized(dg.universe)
+                v = _np_apply_pair(bmod.np_pack(st.node_mask),
+                                   bmod.np_pack(st.edge_mask),
+                                   _recent_pair(dg, True, None), U_n, U_e)
+            vals[n.nid] = (_to_device(v[0], dev), _to_device(v[1], dev))
+            frontier.append(n.nid)
+
+    def expand(nid: int) -> None:
+        """Fork nodes inherit their parent's value and join the frontier."""
+        if nid in fork_child:
+            f = fork_child[nid]
+            vals[f] = vals[nid]
+            frontier.append(f)
+
+    for nid in list(vals):
+        expand(nid)
+
+    while frontier:
+        # collect every ready segment in this wave
+        segments: list[tuple[int, list[int]]] = []   # (parent, [apply nids])
+        wave, frontier = frontier, []
+        for pnid in wave:
+            for c in children.get(pnid, ()):
+                seg = [c]
+                while not is_boundary(seg[-1]):
+                    seg.append(children[seg[-1]][0])
+                segments.append((pnid, seg))
+        if not segments:
+            break
+        chains = [[_node_pair(dg, byid[s].op, get_payload) for s in seg]
+                  for _, seg in segments]
+        bases_n = torch.stack([vals[p][0] for p, _ in segments])
+        bases_e = torch.stack([vals[p][1] for p, _ in segments])
+        out_n, out_e = _apply_chains_streamed(
+            bases_n, bases_e, chains, U_n, U_e, device=dev,
+            prefetch=prefetch, stager=stager)
+        for i, (_, seg) in enumerate(segments):
+            end = seg[-1]
+            vals[end] = (out_n[i], out_e[i])
+            frontier.append(end)
+            expand(end)
+
+    out: dict[Any, tuple[np.ndarray, np.ndarray]] = {}
+    for tgt, nid in ir.targets.items():
+        nm = bmod.np_unpack(bmod.to_numpy_words(vals[nid][0]), U_n)
+        em = bmod.np_unpack(bmod.to_numpy_words(vals[nid][1]), U_e)
+        nm &= ~dg.universe.node_transient[:U_n]
+        em &= ~dg.universe.edge_transient[:U_e]
+        out[tgt] = (nm, em)
+    return out
+
+
+def execute_multipoint_torch(dg: DeltaGraph, times, *, device="cuda",
+                             pool=None, use_current: bool = True,
+                             land_in_pool: bool = False, prefetch=None,
+                             stager: DeviceStager | None = None):
+    """Batched multipoint retrieval on the device backend: one Steiner
+    plan, sibling branches batched, store gets optionally prefetched.
+    Returns ``{t: (node_mask, edge_mask)}``, or ``{t: pool gid}`` when
+    ``land_in_pool`` — the masks are then overlaid into GraphPool bit
+    pairs in a single batched insert."""
+    ir = dg.plan_multipoint([int(t) for t in times], NO_ATTRS, use_current)
+    masks = execute_ir_torch(dg, ir, device=device, pool=pool,
+                             prefetch=prefetch, stager=stager)
+    if not land_in_pool:
+        return masks
+    assert pool is not None, "land_in_pool needs a GraphPool"
+    order = list(masks)
+    gids = pool.insert_snapshots_packed(
+        [(bmod.np_pack(masks[t][0]), bmod.np_pack(masks[t][1]))
+         for t in order])
+    return dict(zip(order, gids))
