@@ -1,6 +1,8 @@
-"""Open an index that the JAX package built, from plain values only.
+"""Carry state from the JAX package into the port, from plain values only.
 
-The counterpart of carrying weights across: the JAX package's slot
+* :func:`params_from_reference`: a language model's parameter tree (numpy
+  leaves) as the port's tensors.
+* :func:`load_reference_index`: the JAX package's slot
 registries (:func:`universe_arrays`) and its store's ``{key: blob}`` items
 after ``DeltaGraph.save_skeleton()`` are enough to rebuild the port's
 :class:`GraphUniverse` and reopen the :class:`DeltaGraph` over a
@@ -13,8 +15,11 @@ from typing import Any, Mapping
 
 import numpy as np
 
+import torch
+
 from .core.deltagraph import DeltaGraph
 from .core.events import EventList, GraphUniverse
+from .kernels.policy import resolve_device
 from .storage.kv import MemKV
 
 _EVENT_FIELDS = ("time", "etype", "slot", "attr_col", "value", "old_value")
@@ -86,3 +91,48 @@ def load_reference_index(universe_arrays: Mapping[str, Any],
     if recent is not None:
         dg.recent = EventList(*(np.asarray(recent[f]) for f in _EVENT_FIELDS))
     return uni, dg
+
+
+def _leaf_tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype.  A JAX bf16 array comes
+    out of ``np.asarray`` as an ``ml_dtypes`` bfloat16 array, which
+    ``torch.from_numpy`` refuses: it is carried by its bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_reference(tree: Mapping[str, Any], cfg, device="cuda"
+                          ) -> dict[str, Any]:
+    """The port's LM parameters from the JAX package's tree.
+
+    ``tree`` is the nested dict of ``init_params`` (or a checkpoint) with
+    each leaf converted by ``np.asarray``; ``cfg`` the port's
+    :class:`~repro_torch.models.transformer.TransformerConfig`.  Both
+    packages keep the stacked ``group{gi}/<name> [L, ...]`` layout, so the
+    carry is leaf for leaf; keys, shapes and dtypes are checked against
+    the port's :func:`~repro_torch.models.transformer.param_defs`.  The
+    tensors land on the card unless ``device="cpu"`` (the default raises
+    without one)."""
+    from .models.transformer import param_defs
+
+    device = resolve_device(device)
+
+    def carry(defs, sub, path):
+        if set(defs) != set(sub):
+            raise ValueError(f"parameter keys differ at {path or '/'}: "
+                             f"{sorted(defs)} vs {sorted(sub)}")
+        out = {}
+        for key, d in defs.items():
+            if isinstance(d, dict):
+                out[key] = carry(d, sub[key], f"{path}{key}/")
+                continue
+            t = _leaf_tensor(np.asarray(sub[key]))
+            if tuple(t.shape) != d.shape or t.dtype != d.dtype:
+                raise ValueError(f"{path}{key}: {tuple(t.shape)} {t.dtype}, "
+                                 f"expected {d.shape} {d.dtype}")
+            out[key] = t.to(device)
+        return out
+
+    return carry(param_defs(cfg), tree, "")

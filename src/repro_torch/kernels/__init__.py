@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``) on the retrieval path.
+"""Hand-written CUDA kernels for Hopper (``sm_90a``): snapshot retrieval
+(delta-apply, segment-sum) and LM serving (flash attention).
 
 Each kernel directory has ``ops.py`` (the wrapper: dispatch by tensor
 device, launch counter) and ``ref.py`` (the plain PyTorch version); the
@@ -11,16 +12,18 @@ from .delta_apply import (FusedOut, delta_apply_chain,  # noqa: F401
                           delta_apply_chain_batched, delta_apply_fused,
                           delta_apply_fused_batched)
 from .delta_apply import launches as _da_launches
+from .flash_attention import attention  # noqa: F401
+from .flash_attention import launches as _fa_launches
 from .segment_sum import bucket_edges, segment_sum  # noqa: F401
 from .segment_sum import launches as _ss_launches
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {**_da_launches, **_ss_launches}
+    return {**_da_launches, **_fa_launches, **_ss_launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_da_launches, _ss_launches):
+    for counts in (_da_launches, _fa_launches, _ss_launches):
         for name in counts:
             counts[name] = 0

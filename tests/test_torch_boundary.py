@@ -6,6 +6,7 @@
 * Entry points called without ``device=`` run on the card; without one
   they raise instead of running on the CPU.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -15,8 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import reduced_config
 from repro_torch.core import DeltaGraph
 from repro_torch.data.generators import random_history
+from repro_torch.interop import params_from_reference
+from repro_torch.kernels import attention
+from repro_torch.kernels.policy import resolve_device
+from repro_torch.launch import serve
+from repro_torch.models.common import init_params
+from repro_torch.models.transformer import model as tm
 from repro_torch.runtime import torch_exec
 from repro_torch.runtime.staging import DeviceStager
 from repro_torch.storage.kv import MemKV
@@ -89,3 +97,54 @@ def test_ir_entry_default_raises(no_card, small_index):
         torch_exec.execute_ir_torch(dg, ir)
     out = torch_exec.execute_ir_torch(dg, ir, device="cpu")
     assert all(isinstance(v[0], np.ndarray) for v in out.values())
+
+
+@pytest.mark.parametrize("entry", ["serve_lm", "load_lm"])
+def test_lm_serving_defaults_to_the_card(no_card, entry):
+    args = ("gemma3-1b", 1, 4, 1) if entry == "serve_lm" else ("gemma3-1b",)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(serve, entry)(*args, reduced=True)
+    out = getattr(serve, entry)(*args, reduced=True, device="cpu")
+    assert out is not None
+
+
+def _model_entry(name: str):
+    """``(call, check)``: the model entry point ``name`` on a reduced
+    gemma3-1b, and a check of what it returns on the CPU."""
+    cfg = reduced_config("gemma3-1b")
+    if name == "init_params":
+        return (lambda **kw: init_params(tm.param_defs(cfg),
+                                         torch.Generator(), **kw),
+                lambda out: out["embed"].shape == (cfg.vocab, cfg.d_model))
+    if name == "init_cache":
+        return (lambda **kw: tm.init_cache(cfg, 2, 8, **kw),
+                lambda out: out[0][0].shape[3] == 8)
+    if name == "prompt_tokens":
+        return (lambda **kw: serve.prompt_tokens(cfg, 2, 8, **kw),
+                lambda out: out.shape == (2, 8))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_params(tm.param_defs(cfg32), torch.Generator(),
+                         device="cpu")
+    tree = {k: (v.numpy() if isinstance(v, torch.Tensor) else
+                {n: w.numpy() for n, w in v.items()})
+            for k, v in params.items()}
+    return (lambda **kw: params_from_reference(tree, cfg32, **kw),
+            lambda out: out["embed"].device.type == "cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_cache",
+                                   "prompt_tokens", "params_from_reference"])
+def test_model_entry_points_default_to_the_card(no_card, entry):
+    call, ok = _model_entry(entry)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    assert ok(call(device="cpu"))
+
+
+def test_attention_inputs_default_to_the_card(no_card):
+    """Tensors for ``attention`` placed on the default device raise here;
+    placed on the CPU they run the plain version."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch.zeros(1, 1, 2, 8, device=resolve_device())
+    x = torch.zeros(1, 1, 2, 8, device=resolve_device("cpu"))
+    assert attention(x, x, x).shape == (1, 1, 2, 8)

@@ -3,7 +3,9 @@
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (a CUDA
 kernel has no CPU mode).  They cover the shapes ``chip_smoke.py`` does not:
 odd widths, ragged word groups, K = 0, weights shorter than ``32 * W``,
-the pinned host-to-device put and the streamed retrieval path.
+the pinned host-to-device put and the streamed retrieval path; for flash
+attention the JAX suite's shape sweep plus D = 256 with GQA 4:1, windows,
+rows without a key, strided inputs and a reduced LM on the card.
 This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -14,9 +16,11 @@ import torch
 
 from repro_torch.core import DeltaGraph
 from repro_torch.data.generators import churn_network
-from repro_torch.kernels import (delta_apply_chain, delta_apply_chain_batched,
+from repro_torch.kernels import (attention, delta_apply_chain,
+                                 delta_apply_chain_batched,
                                  delta_apply_fused_batched, launch_counts,
                                  segment_sum)
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.delta_apply.ref import (delta_apply_chain_ref,
                                                  delta_apply_fused_ref)
 from repro_torch.runtime import torch_exec
@@ -160,3 +164,93 @@ def test_cuda_retrieval_matches_cpu(cuda_device, monkeypatch, chunk):
     assert np.array_equal(em, cem) and np.array_equal(nm, cnm)
     _assert_fused_equal(an.edge, can.edge)
     assert np.array_equal(an.degrees(), can.degrees())
+
+
+ATTN_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_off)
+    (2, 4, 2, 16, 16, 32, 32, True, None, 0),
+    (1, 4, 4, 33, 33, 16, 16, True, None, 0),
+    (1, 8, 1, 8, 64, 32, 32, True, None, 56),
+    (2, 4, 2, 32, 32, 32, 32, True, 8, 0),
+    (1, 2, 2, 16, 48, 16, 16, False, None, 0),
+    (1, 4, 4, 16, 16, 24, 8, True, None, 0),      # Dv != D
+    (2, 4, 1, 100, 100, 256, 256, True, 40, 0),   # gemma3 widths, GQA 4:1
+    (1, 4, 1, 1, 300, 256, 256, True, None, 250),  # decode, unwritten tail
+    (1, 4, 1, 1, 300, 256, 256, True, 64, 250),
+    (1, 32, 8, 70, 70, 160, 160, True, None, 0),   # stablelm head_dim
+    (1, 2, 1, 40, 40, 192, 128, True, None, 0),    # MLA prefill widths
+    (1, 2, 1, 16, 16, 16, 16, True, None, -3),     # rows with no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_matches_plain(cuda_device, shape, dtype):
+    """Kernel against plain on the same inputs: 3e-5 in f32, 2e-2 in bf16
+    (outputs rounded to bf16 after sums in another order)."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
+    g = torch.Generator().manual_seed(Sq * Sk + D)
+    q, k, v = (torch.randn(s, generator=g).to(dtype) for s in
+               ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    n0 = launch_counts()["flash_attention"]
+    got = attention(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == n0 + 1
+    want = attention_ref(q, k, v, **kw)
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    if qoff < 0:
+        assert torch.all(got[:, :, :-qoff] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_strided_inputs(cuda_device):
+    """q as a transposed projection and k/v as a slice of a longer cache,
+    read in place through their strides."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn(2, 50, 4, 64, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    cache = torch.randn(2, 2, 80, 64, generator=g, device=cuda_device,
+                        dtype=torch.bfloat16)
+    k, v = cache[:, :, :50], cache.flip(2)[:, :, :50].contiguous()
+    got = attention(q, k, v, window=16)
+    want = attention_ref(q.contiguous(), k.contiguous(), v, window=16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_matches_cpu(cuda_device):
+    """Reduced gemma3-1b at 6 layers (one global layer) in f32: forward and
+    prefill + decode on the card match the host's, 1e-4 relative."""
+    import dataclasses
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import model as tm
+
+    cfg = dataclasses.replace(reduced_config("gemma3-1b"), n_layers=6,
+                              dtype=torch.float32)
+    params = init_params(tm.param_defs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    dparams = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else
+                   {n: w.to(cuda_device) for n, w in v.items()})
+               for k, v in params.items()}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                                (2, 20)))
+    n0 = launch_counts()["flash_attention"]
+    want = tm.forward(params, tokens, cfg)[0]
+    got = tm.forward(dparams, tokens.to(cuda_device), cfg)[0].cpu()
+    assert launch_counts()["flash_attention"] == n0 + 6
+    rel = (got - want).abs().max() / want.abs().max()
+    assert rel <= 1e-4, rel
+    _, cache = tm.prefill_step(dparams, tokens[:, :16].to(cuda_device), cfg,
+                               max_len=20)
+    for i in range(16, 20):
+        lg, cache = tm.decode_step(dparams, cache,
+                                   tokens[:, i:i + 1].to(cuda_device), i, cfg)
+    rel = (lg.cpu() - want[:, -1]).abs().max() / want[:, -1].abs().max()
+    assert rel <= 1e-4, rel
