@@ -28,7 +28,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    ``repro_torch.launch.serve.serve_lm``: batch 8, a 4,096-token prompt,
    32 greedy decode steps (the repo's ``prefill_32k`` / ``decode_32k``
    cut to one card).  Checks: finite logits; ``flash_attention``
-   launched 26 times per forward call; prefill of ``prompt[:, :-16]`` and
+   launched 26 times per forward call, and every decode call through the
+   split-K decode kernel (``flash_attention_decode``: 26 per decode step,
+   none in prefill); prefill of ``prompt[:, :-16]`` and
    16 decode steps against the whole prompt's prefill (relative error of
    the last logits): in bf16 within the reference's 5e-2 at the first 6
    layers, and at full depth within 1.5 times the drift of the same run
@@ -40,9 +42,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    ``q_offset`` 4,100 against the ``max_len`` cache) in bf16 within 2e-2
    and, element by element, two bf16 ulps plus 1e-5 (which the plain
    version with the last key tile dropped must fail), and at the
-   global-prefill shape in f32 within 3e-5; with kernel, plain, bound
-   and ``scaled_dot_product_attention`` times (over the visible keys),
-   and prefill ms, decode ms per step and tokens per second.
+   global-prefill and global-decode shapes in f32 within 3e-5; each shape
+   names the kernel that ran and its splits.  Kernel and
+   ``scaled_dot_product_attention`` times (over the visible keys) are
+   device times, a CUDA graph of repeated calls replayed between CUDA
+   events, beside the same calls in a host loop (which the wrapper's host
+   work bounds at decode); plain and bound times; prefill ms, decode ms
+   per step and tokens per second.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -103,6 +109,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, reps: int = 2) -> float:
+    """Mean milliseconds of ``fn()`` on the card with no host in the way:
+    ``iters`` calls captured in one CUDA graph, replayed ``reps`` times
+    between CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # warm-up off the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
              ) -> tuple[float, str]:
     """Least time for ``nbytes`` moved and ``ops`` done at ``ops_per_s``,
@@ -158,14 +191,15 @@ def visible_span(Sq: int, Sk: int, window, q_offset: int
     return pairs, lo, max(hi, lo)
 
 
-def lm_phase(dev) -> dict:
+def lm_phase(dev) -> list[dict]:
     """LM serving through the port's ``launch/serve.py``; returns the
-    flash-attention kernel's record."""
+    records of the two attention kernels (prefill and decode)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import attention, attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import visible
     from repro_torch.launch import serve
     from repro_torch.models.transformer import model as tm
@@ -200,9 +234,12 @@ def lm_phase(dev) -> dict:
     launches = kernels.launch_counts()
     tm.attention = orig
     n_fa = launches["flash_attention"]
+    n_dec = launches["flash_attention_decode"]
     check(n_fa == L * (1 + LM_GEN) == len(seen),
           f"flash_attention launched {n_fa} times for {1 + LM_GEN} forward "
           f"calls of {L} layers")
+    check(n_dec == L * LM_GEN, f"the decode kernel launched {n_dec} times "
+          f"for {LM_GEN} decode steps of {L} layers")
     prefill_ms = res["prefill_s"] * 1e3
     step_ms = res["decode_s"] / LM_GEN * 1e3
     tok_s = LM_BATCH * LM_GEN / res["decode_s"]
@@ -255,13 +292,17 @@ def lm_phase(dev) -> dict:
     check(rel32 <= 1e-3, f"f32 tail drift {rel32}")
     del direct
     n_fa2 = kernels.launch_counts()["flash_attention"]
+    n_dec2 = kernels.launch_counts()["flash_attention_decode"]
     check(n_fa2 == (3 * L + LM_CUT_LAYERS) * (2 + LM_TAIL),
           f"flash_attention launched {n_fa2} times in the tail checks")
+    check(n_dec2 == (3 * L + LM_CUT_LAYERS) * LM_TAIL,
+          f"the decode kernel launched {n_dec2} times in the tail checks")
     torch.cuda.empty_cache()
     print(f"LM serving: prefill {LM_BATCH}x{LM_PROMPT} {prefill_ms:.3f} ms; "
           f"decode {step_ms:.3f} ms/step ({tok_s:.1f} tok/s); "
           f"flash_attention launches {n_fa} on serve_lm ({L} x "
-          f"{1 + LM_GEN} forward calls); prefill + {LM_TAIL} decode steps "
+          f"{1 + LM_GEN} forward calls), {n_dec} of them through the decode "
+          f"kernel; prefill + {LM_TAIL} decode steps "
           f"vs whole-prompt prefill: relative error {rel:.6e} in bf16 "
           f"({rel_plain:.6e} through the plain version, {rel_wrong:.6e} "
           f"with the last key tile dropped), {rel_cut:.6e} in "
@@ -305,11 +346,14 @@ def lm_phase(dev) -> dict:
         return lambda: F.scaled_dot_product_attention(q, k, v,
                                                       enable_gqa=True, **kw)
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = []
     for label, (qs, ks, vs, window, off), n in cases:
         q, k, v = (rand(s, cfg.dtype) for s in (qs, ks, vs))
         kw = dict(causal=True, window=window, q_offset=off)
+        d0 = kernels.launch_counts()["flash_attention_decode"]
         got = attention(q, k, v, **kw)
+        decode = kernels.launch_counts()["flash_attention_decode"] > d0
         want = attention_ref(q, k, v, **kw)
         # the plain version with the last 32 visible keys dropped: a kernel
         # that lost its last key tile would give this, and must fail
@@ -326,12 +370,20 @@ def lm_phase(dev) -> dict:
         check(wrong_ratio > 1.0, f"the bf16 check at {label} passes a "
               f"result with the last key tile dropped ({wrong_ratio})")
         prefill = qs[2] > 1
-        ms = cuda_ms(lambda: attention(q, k, v, **kw), 5 if prefill else 50)
+        check(decode != prefill, f"{label} ran the "
+              f"{'decode' if decode else 'prefill'} kernel")
+        iters = 4 if prefill else 50
+        ms = graph_ms(lambda: attention(q, k, v, **kw), iters)
+        loop_ms = cuda_ms(lambda: attention(q, k, v, **kw), iters)
         plain = cuda_ms(lambda: attention_ref(q, k, v, **kw),
                         3 if prefill else 20)
-        lib_ms = cuda_ms(lib, 5 if prefill else 50)
+        lib_ms = graph_ms(lib, iters)
+        lib_loop_ms = cuda_ms(lib, iters)
         B, Hq, Sq, D = qs
         Hkv, Sk, Dv = ks[1], ks[2], vs[3]
+        n_splits = fa_ops.plan_splits(
+            Sq, Sk, causal=True, window=window, q_offset=off,
+            blocks=B * Hkv, n_sm=n_sm).n_splits if decode else None
         pairs, lo, hi = visible_span(Sq, Sk, window, off)
         nbytes = 2.0 * (B * Hq * Sq * (D + Dv) + B * Hkv * (hi - lo) * (D + Dv))
         ops = 2.0 * B * Hq * pairs * (D + Dv)
@@ -339,20 +391,29 @@ def lm_phase(dev) -> dict:
         shapes.append({
             "shape": f"{label}: q {list(qs)} k/v {list(ks)} window {window} "
                      f"q_offset {off} bf16", "launches": n,
+            "kernel": ("flash_decode.cu: attention_decode_split_kernel + "
+                       "attention_decode_combine_kernel" if decode else
+                       "flash_attention.cu: attention_mma_kernel"),
+            "n_splits": n_splits,
             "max_abs_err": err, "err_over_bf16_limit": ratio,
             "dropped_tile_err_over_bf16_limit": wrong_ratio,
             "max_abs_plain": float(want.float().abs().max()), "ms": ms,
-            "plain_ms": plain, "bound_ms": b, "bound_by": by,
-            "library_ms": lib_ms, "library_max_abs_err": lib_err})
+            "host_loop_ms": loop_ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by, "library_ms": lib_ms,
+            "library_host_loop_ms": lib_loop_ms,
+            "library_max_abs_err": lib_err})
         del q, k, v, got, want, wrong
-    # one f32 case at the global-prefill shape, held to 3e-5
-    qs, ks, vs, window, off = cases[1][1]
-    q, k, v = (rand(s, torch.float32) for s in (qs, ks, vs))
-    err32 = max_abs_err(attention(q, k, v, window=window, q_offset=off),
-                        attention_ref(q, k, v, window=window, q_offset=off))
-    torch.cuda.synchronize()
-    check(err32 <= 3e-5, f"flash_attention differs from plain in f32: {err32}")
-    del q, k, v
+    # f32 at the global-prefill and global-decode shapes, held to 3e-5
+    err32 = {}
+    for label, (qs, ks, vs, window, off), _ in (cases[1], cases[3]):
+        q, k, v = (rand(s, torch.float32) for s in (qs, ks, vs))
+        err32[label] = max_abs_err(
+            attention(q, k, v, window=window, q_offset=off),
+            attention_ref(q, k, v, window=window, q_offset=off))
+        torch.cuda.synchronize()
+        check(err32[label] <= 3e-5, f"flash_attention differs from plain in "
+              f"f32 at {label}: {err32[label]}")
+        del q, k, v
 
     by_label = {s["shape"].split(":")[0]: s for s in shapes}
     kern_prefill = sum(by_label[f"{w} prefill"]["ms"] * by_label[
@@ -363,35 +424,52 @@ def lm_phase(dev) -> dict:
           f"{kern_prefill:.3f} ms of the {prefill_ms:.3f} ms prefill "
           f"({kern_prefill / prefill_ms:.1%}) and {kern_step:.3f} ms of the "
           f"{step_ms:.3f} ms decode step ({kern_step / step_ms:.1%}); f32 "
-          f"global prefill max_abs_err {err32:.3e}; peak device memory "
+          f"max_abs_err {json.dumps(err32)}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
           f"{time.perf_counter() - t_phase:.3f} s")
     del params, res
     torch.cuda.empty_cache()
-    top = by_label["global prefill"]
-    rec = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention/flash_attention.py:95",
-           "launches": n_fa,
-           "max_abs_err": max(s["max_abs_err"] for s in shapes),
-           "err_over_bf16_limit": max(s["err_over_bf16_limit"]
-                                      for s in shapes),
-           "limits": {"bf16": "max abs <= 2e-2, and |kernel - plain| <= "
-                              "2^-6 |plain| + 1e-5 per element",
-                      "f32": "max abs <= 3e-5"},
-           "ms": top["ms"], "plain_ms": top["plain_ms"],
-           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-           "library_ms": top["library_ms"], "shape": top["shape"],
-           "shapes": shapes, "f32_global_prefill_max_abs_err": err32,
-           "serving": {"prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
-                       "decode_tok_per_s": tok_s,
-                       "tail_rel_err_bf16": rel,
-                       "tail_rel_err_bf16_plain_attention": rel_plain,
-                       "tail_rel_err_bf16_last_tile_dropped": rel_wrong,
-                       f"tail_rel_err_bf16_{LM_CUT_LAYERS}_layers": rel_cut,
-                       "tail_rel_err_f32": rel32}}
-    print(f"kernel flash_attention: {json.dumps(rec)}")
-    return rec
+    limits = {"bf16": "max abs <= 2e-2, and |kernel - plain| <= "
+                      "2^-6 |plain| + 1e-5 per element",
+              "f32": "max abs <= 3e-5"}
+    replaces = "src/repro/kernels/flash_attention/flash_attention.py:95"
+    csrc = "src/repro_torch/kernels/csrc"
+    recs = []
+    for name, source, n_launch, top_label, own in (
+            ("flash_attention", f"{csrc}/flash_attention.cu", n_fa,
+             "global prefill", ("local prefill", "global prefill")),
+            ("flash_attention_decode", f"{csrc}/flash_decode.cu", n_dec,
+             "global decode", ("local decode", "global decode"))):
+        top = by_label[top_label]
+        mine = [by_label[lb] for lb in own]
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": n_launch,
+               "max_abs_err": max(s["max_abs_err"] for s in mine),
+               "err_over_bf16_limit": max(s["err_over_bf16_limit"]
+                                          for s in mine),
+               "limits": limits, "ms": top["ms"],
+               "host_loop_ms": top["host_loop_ms"],
+               "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+               "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+               "shape": top["shape"], "shapes": mine,
+               f"f32_{top_label.replace(' ', '_')}_max_abs_err":
+                   err32[top_label]}
+        if name == "flash_attention":
+            rec["launches_note"] = ("every attention() call on the path; "
+                                    f"{n_dec} of them ran the decode kernel")
+            rec["serving"] = {
+                "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
+                "decode_tok_per_s": tok_s,
+                "attention_kernel_ms_per_prefill": kern_prefill,
+                "attention_kernel_ms_per_decode_step": kern_step,
+                "tail_rel_err_bf16": rel,
+                "tail_rel_err_bf16_plain_attention": rel_plain,
+                "tail_rel_err_bf16_last_tile_dropped": rel_wrong,
+                f"tail_rel_err_bf16_{LM_CUT_LAYERS}_layers": rel_cut,
+                "tail_rel_err_f32": rel32}
+        print(f"kernel {name}: {json.dumps(rec)}")
+        recs.append(rec)
+    return recs
 
 
 def main() -> int:
@@ -685,7 +763,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.3f} s)")
 
     # ------------------------------------------------------------ LM serving
-    record.append(lm_phase(dev))
+    record.extend(lm_phase(dev))
 
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): snapshot retrieval
-(delta-apply, segment-sum) and LM serving (flash attention).
+(delta-apply, segment-sum) and LM serving (flash attention, with a split-K
+kernel for decode calls).
 
 Each kernel directory has ``ops.py`` (the wrapper: dispatch by tensor
 device, launch counter) and ``ref.py`` (the plain PyTorch version); the

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("delta_apply", "flash_attention", "segment_sum")
+SOURCES = ("delta_apply", "flash_attention", "flash_decode", "segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

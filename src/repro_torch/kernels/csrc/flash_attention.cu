@@ -36,10 +36,12 @@
 //   registers.
 //
 // Bound.  Prefill is bound by operations (the bf16 tensor rate at these
-// widths), decode by bytes (the visible part of the KV cache).  Neither
-// kernel reaches it: mma.sync runs below the wgmma rate and p·v costs three
-// products, and decode has only B·Hq blocks with no split over keys.  The
-// measured gap is in PERF.md; wgmma, TMA and split-K are later work.
+// widths).  This kernel does not reach it: mma.sync runs below the wgmma
+// rate and p·v costs three products; the measured gap is in PERF.md, and
+// wgmma with TMA loads is later work.  Calls with few query rows per KV
+// head (decode: (Hq / Hkv)·Sq <= 8), which are bound by bytes, go to the
+// split-K kernel of flash_decode.cu instead (ops.decode_shape); f32 calls
+// with up to 4 rows that exceed that still run attention_simt_kernel<1>.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -11,7 +11,11 @@ the JAX suite's own: ``rtol = atol = 3e-5`` in f32 (the sums run in
 another order) and ``2e-2`` in bf16 (the XLA path rounds ``p`` to bf16
 before ``p·v``; the port keeps it in f32, as the Pallas kernel does).
 
-The CUDA kernel itself is held against the plain version on the card by
+The split-K decode kernel's algebra (``attention_splitk_ref``: per-split
+``(acc, m, l)`` and their combine) is held against ``attention_ref`` and
+the JAX package at decode shapes for any cut of the keys, and its host
+planner (``ops.plan_splits``, ``ops.decode_shape``) is checked here.  The
+CUDA kernels themselves are held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import numpy as np
@@ -26,9 +30,12 @@ from repro.kernels.flash_attention.flash_attention import (
     flash_attention_pallas)
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 
+from repro_torch.configs.lm_archs import GEMMA3_1B
 from repro_torch.kernels import attention, launch_counts
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_splitk_ref,
+                                                     visible)
 
 SHAPES = [
     # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_off)
@@ -191,23 +198,181 @@ def test_kernel_args_checks():
     with pytest.raises(ValueError, match="window"):
         fa_ops.kernel_args(q, k, v, causal=True, window=0, q_offset=0,
                            scale=None)
+    # the decode kernel copies 16-byte chunks in f32 too: D and Dv padded
+    # to multiples of 4, views with other strides copied
+    q5 = torch.ones(1, 4, 1, 10)
+    k5, v5 = torch.ones(1, 1, 7, 10), torch.ones(1, 1, 7, 6)
+    dq, dk, dv, dsizes, dflags = fa_ops.kernel_args(
+        q5, k5, v5, causal=True, window=None, q_offset=6, scale=None,
+        decode=True)
+    assert dsizes[5:] == (12, 8) and dflags[3] == 10 ** -0.5
+    assert torch.equal(dq[..., :10], q5) and not dq[..., 10:].any()
+    assert not dv[..., 6:].any()
+    assert fa_ops.kernel_args(q5, k5, v5, causal=True, window=None,
+                              q_offset=6, scale=None)[3][5:] == (10, 6)
+    wide = torch.ones(1, 1, 7, 13)[..., :12]                # row stride 13
+    got = fa_ops.kernel_args(torch.ones(1, 4, 1, 12), wide, wide,
+                             causal=True, window=None, q_offset=6,
+                             scale=None, decode=True)
+    assert got[1].stride(-2) % 4 == 0 and torch.equal(got[1], wide)
 
 
-def test_no_fallback_to_plain(monkeypatch):
-    """Inputs the policy sends to the kernel are launched or raise: with
-    the dispatch forced to the kernel and its build failing, the call
+@pytest.mark.parametrize("Sq,source", [(4, "flash_decode"),
+                                       (40, "flash_attention")])
+def test_no_fallback_to_plain(monkeypatch, Sq, source):
+    """Inputs the policy sends to a kernel are launched or raise: with the
+    dispatch forced to the kernels and their build failing, the call
     raises instead of answering with the plain version, and no launch is
-    counted."""
+    counted.  Sq = 4 rows on one KV head takes the decode kernel, Sq = 40
+    the other."""
     def failed_build(name, signatures):
         raise RuntimeError(f"nvcc {name}.cu failed")
 
     monkeypatch.setattr(fa_ops, "use_kernel", lambda *t: True)
     monkeypatch.setattr(fa_ops._build, "load", failed_build)
-    before = launch_counts()["flash_attention"]
-    x = torch.zeros(1, 1, 4, 16)
-    with pytest.raises(RuntimeError, match="failed"):
+    before = launch_counts()
+    x = torch.zeros(1, 1, Sq, 16)
+    with pytest.raises(RuntimeError, match=f"nvcc {source}.cu failed"):
         attention(x, x, x)
-    assert launch_counts()["flash_attention"] == before
+    assert launch_counts() == before
+
+
+# gemma3-1b at the smoke run's decode: B = 8, 4 query heads on 1 KV head
+# of 256, the max_len cache of 4,128 keys, q_offset 4,100
+GEMMA_DECODE = dict(Sq=1, Sk=4128, q_offset=4100, blocks=8)
+PLAN_CASES = [
+    # (Sq, Sk, causal, window, q_offset, blocks)
+    (1, 4128, True, None, 4100, 8),      # gemma3-1b global decode
+    (1, 4128, True, 512, 4100, 8),       # gemma3-1b local decode
+    (2, 300, True, 64, 250, 4),
+    (1, 100, True, None, 150, 2),        # q_offset past Sk
+    (2, 64, True, None, -1, 1),          # row 0 sees no key
+    (1, 64, True, None, -5, 1),          # no row sees a key
+    (1, 100, False, 30, 99, 4),          # not causal
+    (1, 5, True, None, 4, 1),
+    (8, 70000, True, None, 69000, 1),    # one long sequence
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_split_planner(case):
+    """The splits cover exactly the visible keys (the union of what the
+    rows see, from the mask itself), contiguous, inner boundaries on
+    32-key tiles, never past q_offset + Sq; where the keys allow 2 blocks
+    per SM, the call has at least one per SM, and a split reads at least
+    2 tiles."""
+    Sq, Sk, causal, window, off, blocks = case
+    plan = fa_ops.plan_splits(Sq, Sk, causal=causal, window=window,
+                              q_offset=off, blocks=blocks, n_sm=132)
+    assert all(isinstance(x, int) for x in plan)
+    seen = visible(Sq, Sk, causal=causal, window=window,
+                   q_offset=off).any(dim=0).nonzero().flatten().tolist()
+    bounds = plan.bounds()
+    assert len(bounds) == plan.n_splits >= 1
+    if not seen:
+        assert bounds == [(plan.lo, plan.lo)]
+        return
+    assert (plan.lo, plan.hi) == (seen[0], seen[-1] + 1)
+    assert bounds[0][0] == plan.lo and bounds[-1][1] == plan.hi
+    tile = fa_ops.DECODE_TILE
+    for (b0, e0), (b1, _) in zip(bounds, bounds[1:]):
+        assert e0 == b1 and e0 % tile == 0
+    assert all(e > b for b, e in bounds)
+    assert all(e - b <= plan.tiles * tile for b, e in bounds)
+    if causal:
+        assert plan.hi <= off + Sq
+    n_tiles = -(-plan.hi // tile) - plan.lo // tile
+    assert plan.tiles >= min(fa_ops.DECODE_MIN_TILES, n_tiles)
+    if n_tiles >= 2 * 2 * 132 // blocks:       # keys enough for 2 per SM
+        assert blocks * plan.n_splits >= 132
+
+
+def test_split_planner_at_gemma_decode():
+    """gemma3-1b decode: global layers read 4,101 keys in B·Hkv·n_splits >=
+    132 blocks; local layers' 512 keys (16 tiles) in >= 4 splits per
+    (b, hk)."""
+    glob = fa_ops.plan_splits(causal=True, window=None, n_sm=132,
+                              **GEMMA_DECODE)
+    loc = fa_ops.plan_splits(causal=True, window=GEMMA3_1B.window, n_sm=132,
+                             **GEMMA_DECODE)
+    assert (glob.lo, glob.hi) == (0, 4101) and 8 * glob.n_splits >= 132
+    assert (loc.lo, loc.hi) == (3589, 4101) and loc.n_splits >= 4
+
+
+def test_decode_shape():
+    """Every gemma3-1b decode_step call (Sq = 1, 4 query heads on one KV
+    head of 256) takes the decode kernel, its prefill does not; so do
+    other calls with at most 8 query rows per KV head and head dims up to
+    256."""
+    cfg = GEMMA3_1B
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    assert fa_ops.decode_shape(1, H, Hkv, Dh, Dh)
+    assert not fa_ops.decode_shape(4096, H, Hkv, Dh, Dh)
+    assert not fa_ops.decode_shape(16, H, Hkv, Dh, Dh)
+    assert fa_ops.decode_shape(2, H, Hkv, Dh, Dh)          # 8 rows
+    assert not fa_ops.decode_shape(3, H, Hkv, Dh, Dh)      # 12 rows
+    assert fa_ops.decode_shape(1, 7, 1, 128, 128)
+    assert fa_ops.decode_shape(1, 64, 8, 128, 128)         # yi-34b style
+    assert not fa_ops.decode_shape(1, 16, 1, 128, 128)
+    assert not fa_ops.decode_shape(1, 4, 1, 576, 512)      # MLA widths
+    assert not fa_ops.decode_shape(1, 4, 3, 64, 64)
+    assert not fa_ops.decode_shape(1, 4, 0, 64, 64)
+
+
+SPLITK_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, Dv, window, q_offset)
+    (2, 4, 1, 1, 300, 256, 256, None, 250),    # G = 4, global
+    (2, 4, 1, 1, 300, 256, 256, 64, 250),      # windowed
+    (1, 7, 1, 1, 200, 160, 96, None, 150),     # G = 7, D = 160, Dv != D
+    (1, 8, 2, 2, 120, 64, 32, None, 300),      # q_offset past Sk, Sq = 2
+    (1, 4, 1, 2, 64, 256, 128, None, -1),      # row 0 sees no key
+    (1, 4, 1, 1, 64, 160, 160, None, -5),      # no row sees a key
+]
+
+
+def _plans(Sq, Sk, window, q_offset, blocks):
+    """Three cuts of the keys: the planner's; the planner's with empty
+    splits between (and one past every key); and a cut at odd places."""
+    planned = fa_ops.plan_splits(Sq, Sk, causal=True, window=window,
+                                 q_offset=q_offset, blocks=blocks,
+                                 n_sm=132).bounds()
+    with_empty = [(0, 0)]
+    for b, e in planned:
+        with_empty += [(b, e), (e, e)]
+    with_empty.append((Sk, Sk + 40))
+    cuts = [0, 7, 7, 45, Sk // 2 + 3, Sk]
+    odd = list(zip(cuts, cuts[1:]))
+    return {"planned": planned, "with_empty": with_empty, "odd": odd}
+
+
+@pytest.mark.parametrize("shape", SPLITK_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_splitk_plain_matches(shape, dtype):
+    """The split-K algebra gives attention_ref's result for any cut of the
+    keys, and the JAX package's (its Pallas kernel in interpret mode; its
+    oracle where it is finite: it gives NaN for a row with no key, where
+    the port gives exactly 0)."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, window, qoff = shape
+    rng = np.random.default_rng(Sk * D + Hq)
+    (jq, jk, jv), (q, k, v) = _inputs(rng, B, Hq, Hkv, Sq, Sk, D, Dv, dtype)
+    kw = dict(causal=True, window=window, q_offset=qoff)
+    want = _f32(attention_ref(q, k, v, **kw))
+    pallas = _f32(_pallas(jq, jk, jv, block=64, **kw))
+    oracle = _f32(j_attention_ref(jq, jk, jv, **kw))
+    keyless = ~visible(Sq, Sk, q_offset=qoff, causal=True,
+                       window=window).any(dim=1).numpy()
+    assert np.isnan(oracle[:, :, keyless]).all()
+    assert np.isfinite(oracle[:, :, ~keyless]).all()
+    tol = TOL[dtype]
+    for name, splits in _plans(Sq, Sk, window, qoff, B * Hkv).items():
+        got = attention_splitk_ref(q, k, v, splits, **kw)
+        assert got.dtype == q.dtype and tuple(got.shape) == (B, Hq, Sq, Dv)
+        got = _f32(got)
+        assert np.all(got[:, :, keyless] == 0), name
+        assert_allclose(got, want, rtol=tol, atol=tol, err_msg=name)
+        assert_allclose(got, pallas, rtol=tol, atol=tol, err_msg=name)
+        assert_allclose(got[:, :, ~keyless], oracle[:, :, ~keyless],
+                        rtol=tol, atol=tol, err_msg=name)
 
 
 def test_plain_path_counts_no_launch():

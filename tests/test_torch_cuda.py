@@ -5,7 +5,8 @@ kernel has no CPU mode).  They cover the shapes ``chip_smoke.py`` does not:
 odd widths, ragged word groups, K = 0, weights shorter than ``32 * W``,
 the pinned host-to-device put and the streamed retrieval path; for flash
 attention the JAX suite's shape sweep plus D = 256 with GQA 4:1, windows,
-rows without a key, strided inputs and a reduced LM on the card.
+rows without a key, strided inputs, the split-K decode kernel at the
+gemma3-1b decode shapes and a reduced LM on the card.
 This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -180,6 +181,14 @@ ATTN_SHAPES = [
     (1, 32, 8, 70, 70, 160, 160, True, None, 0),   # stablelm head_dim
     (1, 2, 1, 40, 40, 192, 128, True, None, 0),    # MLA prefill widths
     (1, 2, 1, 16, 16, 16, 16, True, None, -3),     # rows with no key
+    # decode (Sq · Hq / Hkv <= 8 rows per KV head: the split-K kernel)
+    (8, 4, 1, 1, 4128, 256, 256, True, None, 4100),  # gemma3-1b global
+    (8, 4, 1, 1, 4128, 256, 256, True, 512, 4100),   # gemma3-1b local
+    (1, 7, 1, 1, 200, 128, 128, True, None, 150),    # G = 7
+    (2, 8, 2, 2, 300, 256, 256, True, 64, 250),      # Sq = 2, G = 4
+    (1, 4, 1, 2, 64, 64, 32, True, None, -1),        # row 0 sees no key
+    (1, 4, 1, 1, 64, 160, 96, True, None, -5),       # no row sees a key
+    (2, 4, 2, 1, 100, 24, 40, False, 30, 99),        # not causal, window
 ]
 
 
@@ -187,39 +196,56 @@ ATTN_SHAPES = [
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_attention_matches_plain(cuda_device, shape, dtype):
-    """Kernel against plain on the same inputs: 3e-5 in f32, 2e-2 in bf16
-    (outputs rounded to bf16 after sums in another order)."""
+    """Kernel against plain on the same inputs: 3e-5 in f32; in bf16 each
+    element within 2^-6·|plain| + 1e-5 (both sum in f32 and round once to
+    bf16: one ulp apart at most, plus f32 noise).  Calls with at most 8
+    query rows per KV head take the split-K decode kernel, others not."""
     B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
     g = torch.Generator().manual_seed(Sq * Sk + D)
     q, k, v = (torch.randn(s, generator=g).to(dtype) for s in
                ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
     kw = dict(causal=causal, window=window, q_offset=qoff)
-    n0 = launch_counts()["flash_attention"]
+    n0 = launch_counts()
     got = attention(*(t.to(cuda_device) for t in (q, k, v)), **kw)
     torch.cuda.synchronize()
-    assert launch_counts()["flash_attention"] == n0 + 1
+    n1 = launch_counts()
+    assert n1["flash_attention"] == n0["flash_attention"] + 1
+    decode = Sq * Hq // Hkv <= 8
+    assert (n1["flash_attention_decode"] - n0["flash_attention_decode"]
+            == int(decode))
     want = attention_ref(q, k, v, **kw)
-    tol = 3e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
-                               atol=tol)
+    rtol, atol = (3e-5, 3e-5) if dtype == torch.float32 else (2 ** -6, 1e-5)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=rtol,
+                               atol=atol)
     if qoff < 0:
         assert torch.all(got[:, :, :-qoff] == 0)
 
 
 @pytest.mark.cuda
-def test_cuda_attention_strided_inputs(cuda_device):
-    """q as a transposed projection and k/v as a slice of a longer cache,
-    read in place through their strides."""
+@pytest.mark.parametrize("Sq,q_offset", [(50, 0), (1, 49), (2, 48)])
+def test_cuda_attention_strided_inputs(cuda_device, Sq, q_offset):
+    """q as a transposed projection and k/v as slices of longer caches
+    (one of them the K half of a cache holding K and V side by side at
+    each position), read through their strides by the prefill kernel
+    (Sq = 50) and the decode kernel."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    q = torch.randn(2, 50, 4, 64, generator=g, device=cuda_device,
+    q = torch.randn(2, Sq, 4, 64, generator=g, device=cuda_device,
                     dtype=torch.bfloat16).transpose(1, 2)
     cache = torch.randn(2, 2, 80, 64, generator=g, device=cuda_device,
                         dtype=torch.bfloat16)
     k, v = cache[:, :, :50], cache.flip(2)[:, :, :50].contiguous()
-    got = attention(q, k, v, window=16)
-    want = attention_ref(q.contiguous(), k.contiguous(), v, window=16)
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                               atol=2e-2)
+    kv = torch.randn(2, 80, 2, 2, 64, generator=g, device=cuda_device,
+                     dtype=torch.bfloat16)
+    k2 = kv[:, :50, 0].transpose(1, 2)
+    for kk, vv in ((k, v), (k2, v)):
+        n0 = launch_counts()["flash_attention_decode"]
+        got = attention(q, kk, vv, window=16, q_offset=q_offset)
+        assert (launch_counts()["flash_attention_decode"] - n0 ==
+                int(Sq * 2 <= 8))
+        want = attention_ref(q.contiguous(), kk.contiguous(), vv, window=16,
+                             q_offset=q_offset)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                                   atol=1e-5)
 
 
 @pytest.mark.cuda
