@@ -7,7 +7,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 
 1. set-up: the card's name and power limit; every CUDA kernel built from
    ``src/repro_torch/kernels/csrc`` with one ``nvcc`` per source, all at
-   once;
+   once, and ptxas's registers and spills for the prefill kernel;
 2. retrieval path: a ``growing_network(2_000_000)`` history (the
    generator's analogue of the paper's Dataset 1) indexed by a
    ``DeltaGraph``; 64 timepoints retrieved by
@@ -28,9 +28,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    ``repro_torch.launch.serve.serve_lm``: batch 8, a 4,096-token prompt,
    32 greedy decode steps (the repo's ``prefill_32k`` / ``decode_32k``
    cut to one card).  Checks: finite logits; ``flash_attention``
-   launched 26 times per forward call, and every decode call through the
-   split-K decode kernel (``flash_attention_decode``: 26 per decode step,
-   none in prefill); prefill of ``prompt[:, :-16]`` and
+   launched 26 times per forward call, every prefill call through the
+   wgmma/TMA prefill kernel (``flash_attention_prefill``: 26 per prefill
+   forward) and every decode call through the split-K decode kernel
+   (``flash_attention_decode``: 26 per decode step); prefill of
+   ``prompt[:, :-16]`` and
    16 decode steps against the whole prompt's prefill (relative error of
    the last logits): in bf16 within the reference's 5e-2 at the first 6
    layers, and at full depth within 1.5 times the drift of the same run
@@ -47,8 +49,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    ``scaled_dot_product_attention`` times (over the visible keys) are
    device times, a CUDA graph of repeated calls replayed between CUDA
    events, beside the same calls in a host loop (which the wrapper's host
-   work bounds at decode); plain and bound times; prefill ms, decode ms
-   per step and tokens per second.
+   work bounds at decode); at the prefill shapes also the old prefill
+   kernel (``attention_mma_kernel``, through ``ops._attention_mma``) in
+   the same run, and its error; plain and bound times; prefill ms, decode
+   ms per step and tokens per second.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -58,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -191,9 +196,24 @@ def visible_span(Sq: int, Sk: int, window, q_offset: int
     return pairs, lo, max(hi, lo)
 
 
+def print_ptxas(log: str) -> None:
+    """ptxas's registers and spills for each instantiation of the prefill
+    kernel, from the build's ``-Xptxas -v`` output."""
+    kernel = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*attention_prefill_kernel"
+                      r"ILi(\d+)ELi(\d+)E", line)
+        if m:
+            kernel = f"attention_prefill_kernel<{m[1]}, {m[2]}>"
+        elif kernel and ("spill" in line or "registers" in line):
+            print(f"ptxas {kernel}: "
+                  f"{line.strip().removeprefix('ptxas info    : ')}")
+
+
 def lm_phase(dev) -> list[dict]:
     """LM serving through the port's ``launch/serve.py``; returns the
-    records of the two attention kernels (prefill and decode)."""
+    records of the attention kernels: prefill, decode, and the old prefill
+    design (``flash_attention.cu``) timed beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -234,10 +254,14 @@ def lm_phase(dev) -> list[dict]:
     launches = kernels.launch_counts()
     tm.attention = orig
     n_fa = launches["flash_attention"]
+    n_pre = launches["flash_attention_prefill"]
     n_dec = launches["flash_attention_decode"]
     check(n_fa == L * (1 + LM_GEN) == len(seen),
           f"flash_attention launched {n_fa} times for {1 + LM_GEN} forward "
           f"calls of {L} layers")
+    check(n_pre == L == sum(1 for s in seen if s[0][2] > 1),
+          f"the prefill kernel launched {n_pre} times for one prefill "
+          f"forward of {L} layers")
     check(n_dec == L * LM_GEN, f"the decode kernel launched {n_dec} times "
           f"for {LM_GEN} decode steps of {L} layers")
     prefill_ms = res["prefill_s"] * 1e3
@@ -292,17 +316,22 @@ def lm_phase(dev) -> list[dict]:
     check(rel32 <= 1e-3, f"f32 tail drift {rel32}")
     del direct
     n_fa2 = kernels.launch_counts()["flash_attention"]
+    n_pre2 = kernels.launch_counts()["flash_attention_prefill"]
     n_dec2 = kernels.launch_counts()["flash_attention_decode"]
     check(n_fa2 == (3 * L + LM_CUT_LAYERS) * (2 + LM_TAIL),
           f"flash_attention launched {n_fa2} times in the tail checks")
+    # two prefill forwards per check; the f32 one runs flash_attention.cu
+    check(n_pre2 == (2 * L + LM_CUT_LAYERS) * 2,
+          f"the prefill kernel launched {n_pre2} times in the tail checks")
     check(n_dec2 == (3 * L + LM_CUT_LAYERS) * LM_TAIL,
           f"the decode kernel launched {n_dec2} times in the tail checks")
     torch.cuda.empty_cache()
     print(f"LM serving: prefill {LM_BATCH}x{LM_PROMPT} {prefill_ms:.3f} ms; "
           f"decode {step_ms:.3f} ms/step ({tok_s:.1f} tok/s); "
           f"flash_attention launches {n_fa} on serve_lm ({L} x "
-          f"{1 + LM_GEN} forward calls), {n_dec} of them through the decode "
-          f"kernel; prefill + {LM_TAIL} decode steps "
+          f"{1 + LM_GEN} forward calls), {n_pre} of them through the prefill "
+          f"kernel and {n_dec} through the decode kernel; prefill + "
+          f"{LM_TAIL} decode steps "
           f"vs whole-prompt prefill: relative error {rel:.6e} in bf16 "
           f"({rel_plain:.6e} through the plain version, {rel_wrong:.6e} "
           f"with the last key tile dropped), {rel_cut:.6e} in "
@@ -351,9 +380,12 @@ def lm_phase(dev) -> list[dict]:
     for label, (qs, ks, vs, window, off), n in cases:
         q, k, v = (rand(s, cfg.dtype) for s in (qs, ks, vs))
         kw = dict(causal=True, window=window, q_offset=off)
-        d0 = kernels.launch_counts()["flash_attention_decode"]
+        n0 = kernels.launch_counts()
         got = attention(q, k, v, **kw)
-        decode = kernels.launch_counts()["flash_attention_decode"] > d0
+        n1 = kernels.launch_counts()
+        decode = n1["flash_attention_decode"] > n0["flash_attention_decode"]
+        ran_prefill = (n1["flash_attention_prefill"] >
+                       n0["flash_attention_prefill"])
         want = attention_ref(q, k, v, **kw)
         # the plain version with the last 32 visible keys dropped: a kernel
         # that lost its last key tile would give this, and must fail
@@ -370,10 +402,24 @@ def lm_phase(dev) -> list[dict]:
         check(wrong_ratio > 1.0, f"the bf16 check at {label} passes a "
               f"result with the last key tile dropped ({wrong_ratio})")
         prefill = qs[2] > 1
-        check(decode != prefill, f"{label} ran the "
-              f"{'decode' if decode else 'prefill'} kernel")
+        check(decode != prefill and ran_prefill == prefill, f"{label} ran "
+              f"the {'decode' if decode else 'prefill'} kernel "
+              f"(flash_prefill.cu: {ran_prefill})")
         iters = 4 if prefill else 50
         ms = graph_ms(lambda: attention(q, k, v, **kw), iters)
+        old = {}
+        if prefill:     # the old design, attention_mma_kernel, same inputs
+            mma = fa_ops._attention_mma(q, k, v, **kw)
+            torch.cuda.synchronize()
+            old = {"mma_ms": graph_ms(
+                       lambda: fa_ops._attention_mma(q, k, v, **kw), iters),
+                   "mma_max_abs_err": max_abs_err(mma.float(), want.float()),
+                   "mma_err_over_bf16_limit": over_bf16_limit(mma, want)}
+            old["speedup_over_mma"] = old["mma_ms"] / ms
+            check(old["mma_max_abs_err"] <= 2e-2 and
+                  old["mma_err_over_bf16_limit"] <= 1.0,
+                  f"attention_mma_kernel differs from plain at {label}")
+            del mma
         loop_ms = cuda_ms(lambda: attention(q, k, v, **kw), iters)
         plain = cuda_ms(lambda: attention_ref(q, k, v, **kw),
                         3 if prefill else 20)
@@ -393,7 +439,7 @@ def lm_phase(dev) -> list[dict]:
                      f"q_offset {off} bf16", "launches": n,
             "kernel": ("flash_decode.cu: attention_decode_split_kernel + "
                        "attention_decode_combine_kernel" if decode else
-                       "flash_attention.cu: attention_mma_kernel"),
+                       "flash_prefill.cu: attention_prefill_kernel"),
             "n_splits": n_splits,
             "max_abs_err": err, "err_over_bf16_limit": ratio,
             "dropped_tile_err_over_bf16_limit": wrong_ratio,
@@ -401,7 +447,7 @@ def lm_phase(dev) -> list[dict]:
             "host_loop_ms": loop_ms, "plain_ms": plain, "bound_ms": b,
             "bound_by": by, "library_ms": lib_ms,
             "library_host_loop_ms": lib_loop_ms,
-            "library_max_abs_err": lib_err})
+            "library_max_abs_err": lib_err, **old})
         del q, k, v, got, want, wrong
     # f32 at the global-prefill and global-decode shapes, held to 3e-5
     err32 = {}
@@ -435,28 +481,43 @@ def lm_phase(dev) -> list[dict]:
     replaces = "src/repro/kernels/flash_attention/flash_attention.py:95"
     csrc = "src/repro_torch/kernels/csrc"
     recs = []
+    prefill_labels = ("local prefill", "global prefill")
     for name, source, n_launch, top_label, own in (
-            ("flash_attention", f"{csrc}/flash_attention.cu", n_fa,
-             "global prefill", ("local prefill", "global prefill")),
+            ("flash_attention_prefill", f"{csrc}/flash_prefill.cu", n_pre,
+             "global prefill", prefill_labels),
             ("flash_attention_decode", f"{csrc}/flash_decode.cu", n_dec,
-             "global decode", ("local decode", "global decode"))):
+             "global decode", ("local decode", "global decode")),
+            ("flash_attention", f"{csrc}/flash_attention.cu", n_fa,
+             "global prefill", prefill_labels)):
         top = by_label[top_label]
         mine = [by_label[lb] for lb in own]
+        old = name == "flash_attention"     # attention_mma_kernel's numbers
+        err_key = "mma_max_abs_err" if old else "max_abs_err"
+        ratio_key = ("mma_err_over_bf16_limit" if old else
+                     "err_over_bf16_limit")
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": n_launch,
-               "max_abs_err": max(s["max_abs_err"] for s in mine),
-               "err_over_bf16_limit": max(s["err_over_bf16_limit"]
-                                          for s in mine),
-               "limits": limits, "ms": top["ms"],
-               "host_loop_ms": top["host_loop_ms"],
+               "max_abs_err": max(s[err_key] for s in mine),
+               "err_over_bf16_limit": max(s[ratio_key] for s in mine),
+               "limits": limits, "ms": top["mma_ms" if old else "ms"],
                "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-               "shape": top["shape"], "shapes": mine,
+               "shape": top["shape"],
                f"f32_{top_label.replace(' ', '_')}_max_abs_err":
                    err32[top_label]}
-        if name == "flash_attention":
-            rec["launches_note"] = ("every attention() call on the path; "
-                                    f"{n_dec} of them ran the decode kernel")
+        if old:
+            rec["launches_note"] = (
+                f"every attention() call on the path; {n_pre} of them ran "
+                f"flash_prefill.cu, {n_dec} flash_decode.cu and "
+                f"{n_fa - n_pre - n_dec} this source (whose f32 kernel "
+                f"attention_simt_kernel the f32 tail check runs); ms, "
+                f"errors and mma_ms are attention_mma_kernel through "
+                f"ops._attention_mma on the prefill inputs of this run")
+            rec["mma_ms"] = {s["shape"]: s["mma_ms"] for s in mine}
+        else:
+            rec["host_loop_ms"] = top["host_loop_ms"]
+            rec["shapes"] = mine
+        if name == "flash_attention_prefill":
             rec["serving"] = {
                 "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
                 "decode_tok_per_s": tok_s,
@@ -513,6 +574,7 @@ def main() -> int:
     build_s = _build.build()
     print(f"build: nvcc per source {json.dumps(build_s)}; all sources "
           f"{time.perf_counter() - t0:.3f} s wall (parallel)")
+    print_ptxas(_build.logs.get("flash_prefill", ""))
 
     # ------------------------------------------------------------- main path
     t0 = time.perf_counter()

@@ -21,11 +21,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("delta_apply", "flash_attention", "flash_decode", "segment_sum")
+SOURCES = ("delta_apply", "flash_attention", "flash_decode", "flash_prefill",
+           "segment_sum")
+# -Xptxas -v: ptxas reports each kernel's registers, spills and shared
+# memory; build() keeps that output in ``logs``.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+logs: dict[str, str] = {}       # nvcc's output of this process's builds
 
 
 def nvcc() -> str:
@@ -50,8 +54,8 @@ def _target(name: str) -> Path:
 def build(names=SOURCES) -> dict[str, float]:
     """Compile every listed source that has no up-to-date library, one
     ``nvcc`` process each, all started together.  Returns the seconds each
-    build took (0.0 for a library already built); raises with the
-    compiler's output on any failure."""
+    build took (0.0 for a library already built) and keeps each compiler's
+    output in :data:`logs`; raises with that output on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     times = {}
@@ -71,6 +75,7 @@ def build(names=SOURCES) -> dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         times[name] = time.perf_counter() - t0
+        logs[name] = log
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue

@@ -1,4 +1,4 @@
-"""Plain PyTorch attention: the function ``flash_attention.cu`` computes.
+"""Plain PyTorch attention: the function the CUDA kernels compute.
 
 Same semantics as the JAX package's Pallas kernel
 (``repro/kernels/flash_attention/flash_attention.py::_kernel``): inputs
@@ -38,10 +38,15 @@ def visible(Sq: int, Sk: int, *, causal: bool, window: int | None,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
-                  q_offset: int = 0, scale: float | None = None
-                  ) -> torch.Tensor:
+                  q_offset: int = 0, scale: float | None = None,
+                  p_terms: int | None = None) -> torch.Tensor:
     """q: [B, Hq, Sq, D]; k: [B, Hkv, Sk, D]; v: [B, Hkv, Sk, Dv];
-    Hq % Hkv == 0 -> [B, Hq, Sq, Dv] in ``q.dtype``."""
+    Hq % Hkv == 0 -> [B, Hq, Sq, Dv] in ``q.dtype``.
+
+    ``p_terms`` (tests only) carries p into p·v as ``flash_prefill.cu``
+    does, as a sum of bf16 terms: 2 gives ``P_hi + P_lo`` with ``P_hi =
+    bf16(p)`` and ``P_lo = bf16(p - P_hi)`` (within 2^-16 |p| of p), 1
+    rounds p once to bf16; None keeps p in f32."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
@@ -54,9 +59,21 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
+    if p_terms is not None:
+        p = split_bf16(p, p_terms)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     out = out / torch.clamp(l, min=1e-30)
     return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def split_bf16(p: torch.Tensor, terms: int) -> torch.Tensor:
+    """f32 ``p`` as the sum of ``terms`` bf16 terms, each the remainder
+    rounded to bf16, summed back in f32."""
+    out = torch.zeros_like(p)
+    for _ in range(terms):
+        t = (p - out).bfloat16().float()
+        out = out + t
+    return out
 
 
 def attention_splitk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,9 +14,13 @@ before ``p·v``; the port keeps it in f32, as the Pallas kernel does).
 The split-K decode kernel's algebra (``attention_splitk_ref``: per-split
 ``(acc, m, l)`` and their combine) is held against ``attention_ref`` and
 the JAX package at decode shapes for any cut of the keys, and its host
-planner (``ops.plan_splits``, ``ops.decode_shape``) is checked here.  The
-CUDA kernels themselves are held against the plain version on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+planner (``ops.plan_splits``, ``ops.decode_shape``) is checked here.  For
+the wgmma/TMA prefill kernel the routing rule (``ops.prefill_shape``), its
+tile plan (``ops.prefill_tile_plan``, which the kernel mirrors) against
+the mask, and the two-term bf16 split of p (``attention_ref(p_terms=2)``)
+against the JAX package are checked here.  The CUDA kernels themselves are
+held against the plain version on the card by ``tests/test_torch_cuda.py``
+and ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -30,9 +34,10 @@ from repro.kernels.flash_attention.flash_attention import (
     flash_attention_pallas)
 from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 
-from repro_torch.configs.lm_archs import GEMMA3_1B
+from repro_torch.configs.lm_archs import GEMMA3_1B, LM_ARCHS
 from repro_torch.kernels import attention, launch_counts
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ops_ref
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_splitk_ref,
                                                      visible)
@@ -218,23 +223,155 @@ def test_kernel_args_checks():
 
 
 @pytest.mark.parametrize("Sq,source", [(4, "flash_decode"),
-                                       (40, "flash_attention")])
+                                       (40, "flash_attention"),
+                                       (40, "flash_prefill")])
 def test_no_fallback_to_plain(monkeypatch, Sq, source):
     """Inputs the policy sends to a kernel are launched or raise: with the
     dispatch forced to the kernels and their build failing, the call
     raises instead of answering with the plain version, and no launch is
     counted.  Sq = 4 rows on one KV head takes the decode kernel, Sq = 40
-    the other."""
+    in f32 at D = 16 ``flash_attention.cu``, Sq = 40 in bf16 at D = 64 the
+    wgmma/TMA prefill kernel."""
     def failed_build(name, signatures):
         raise RuntimeError(f"nvcc {name}.cu failed")
 
     monkeypatch.setattr(fa_ops, "use_kernel", lambda *t: True)
     monkeypatch.setattr(fa_ops._build, "load", failed_build)
     before = launch_counts()
-    x = torch.zeros(1, 1, Sq, 16)
+    if source == "flash_prefill":
+        x = torch.zeros(1, 1, Sq, 64, dtype=torch.bfloat16)
+    else:
+        x = torch.zeros(1, 1, Sq, 16)
     with pytest.raises(RuntimeError, match=f"nvcc {source}.cu failed"):
         attention(x, x, x)
     assert launch_counts() == before
+
+
+def test_prefill_shape():
+    """bf16 prefill of gemma3-1b (256) and of the D = 128 archs (yi-34b,
+    arctic, deepseek-v3) takes the wgmma/TMA kernel; stablelm's D = 160,
+    the reduced test widths (16, 24), f32 and decode shapes do not."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name in ("gemma3-1b", "yi-34b", "arctic-480b", "deepseek-v3-671b"):
+        cfg = LM_ARCHS[name][0]
+        H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        assert fa_ops.prefill_shape(4096, H, Hkv, Dh, Dh, bf16), name
+        assert not fa_ops.prefill_shape(4096, H, Hkv, Dh, Dh, f32), name
+    g = GEMMA3_1B
+    assert not fa_ops.prefill_shape(1, g.n_heads, 1, 256, 256, bf16)
+    assert not fa_ops.prefill_shape(2, g.n_heads, 1, 256, 256, bf16)
+    assert fa_ops.prefill_shape(3, g.n_heads, 1, 256, 256, bf16)
+    st = LM_ARCHS["stablelm-12b"][0]
+    assert not fa_ops.prefill_shape(4096, st.n_heads, st.n_kv_heads, 160,
+                                    160, bf16)
+    for d in (16, 24, 32, 320):
+        assert not fa_ops.prefill_shape(64, 4, 1, d, d, bf16), d
+    assert fa_ops.prefill_shape(40, 2, 1, 192, 128, bf16)   # MLA prefill
+    assert not fa_ops.prefill_shape(40, 2, 1, 192, 96, bf16)
+    assert [fa_ops.prefill_dims(*d) for d in
+            ((64, 64), (192, 128), (192, 192), (64, 128), (256, 128))] == [
+        (64, 64), (192, 128), (256, 256), (128, 128), (256, 256)]
+
+
+PREFILL_PLAN_CASES = [
+    # (Sq, Sk, causal, window, q_offset)
+    (4096, 4128, True, None, 0),       # gemma3-1b global prefill
+    (4096, 4128, True, 512, 0),        # gemma3-1b local prefill
+    (300, 333, True, None, 0),         # Sq and Sk tails
+    (200, 260, True, 37, 50),          # window not a tile multiple
+    (130, 200, True, 17, 64),          # window smaller than a tile
+    (77, 500, True, 64, 400),          # chunked prefill
+    (100, 100, True, None, -5),        # the first rows see no key
+    (40, 40, True, None, -100),        # no row sees a key
+    (150, 90, True, 100, 3),           # keys end before the rows
+    (64, 64, False, None, 0),
+    (150, 90, False, 20, 10),          # not causal, with a window
+    (10, 200, True, 1, 150),           # window of one key
+    (65, 129, True, 63, 0),
+]
+
+
+@pytest.mark.parametrize("case", PREFILL_PLAN_CASES)
+@pytest.mark.parametrize("block_m,block_n", [(64, 64), (128, 64), (64, 32)])
+def test_prefill_tile_plan(case, block_m, block_n):
+    """For each query tile, against the mask itself: every key tile outside
+    ``[first, end)`` is wholly masked for the tile's real rows, the first
+    and last visited tiles hold a visible key, and a tile is left unmasked
+    exactly when every real row sees every one of its keys (all < Sk)."""
+    Sq, Sk, causal, window, off = case
+    plans = fa_ops.prefill_tile_plan(Sq, Sk, causal=causal, window=window,
+                                     q_offset=off, block_m=block_m,
+                                     block_n=block_n)
+    mask = visible(Sq, Sk, causal=causal, window=window, q_offset=off)
+    assert len(plans) == -(-Sq // block_m)
+    n_tiles = -(-Sk // block_n)
+    for i, plan in enumerate(plans):
+        rows = mask[i * block_m:(i + 1) * block_m]
+        assert len(plan.masked) == plan.end - plan.first
+        seen = rows.any(dim=0)
+        if not bool(seen.any()):
+            assert plan == (0, 0, ())
+            continue
+        assert 0 <= plan.first < plan.end <= n_tiles
+        for t in range(n_tiles):
+            keys = slice(t * block_n, (t + 1) * block_n)
+            if not plan.first <= t < plan.end:
+                assert not bool(seen[keys].any()), (i, t)
+                continue
+            whole = (t + 1) * block_n <= Sk and bool(rows[:, keys].all())
+            assert plan.masked[t - plan.first] == (not whole), (i, t)
+        for t in (plan.first, plan.end - 1):
+            assert bool(seen[t * block_n:(t + 1) * block_n].any()), (i, t)
+
+
+def test_prefill_tile_plan_at_gemma():
+    """gemma3-1b prefill: each 64-row tile masks one diagonal tile (global
+    layers) and, from row 512 on, the window's edge too; a local 64-row
+    tile visits at most 9 of the 65 key tiles."""
+    glob = fa_ops.prefill_tile_plan(4096, 4128, causal=True, window=None,
+                                    q_offset=0)
+    assert all(p.first == 0 and p.end == i + 1 and sum(p.masked) == 1
+               for i, p in enumerate(glob))
+    loc = fa_ops.prefill_tile_plan(4096, 4128, causal=True,
+                                   window=GEMMA3_1B.window, q_offset=0)
+    assert max(p.end - p.first for p in loc) == 9
+    assert all(sum(p.masked) == (2 if 64 * i >= GEMMA3_1B.window else 1)
+               for i, p in enumerate(loc))
+
+
+TWO_TERM_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_off)
+    (1, 4, 1, 48, 48, 64, 64, True, None, 0),
+    (1, 2, 1, 40, 72, 32, 32, True, 16, 32),
+    (2, 2, 2, 16, 48, 16, 16, False, None, 0),
+]
+
+
+@pytest.mark.parametrize("shape", TWO_TERM_SHAPES)
+def test_two_term_p_split(shape):
+    """p carried into p·v as bf16 hi + lo (``flash_prefill.cu``'s two
+    products) stays within the residual's bound of f32 p, in f32 inputs:
+    |p - (hi + lo)| <= 2^-16 |p|, so each output moves by at most
+    2^-16 · Σ p |v| / l <= 2^-16 · max |v| (plus 1e-6 of f32 rounding in
+    the sums) from ``attention_ref``, and by that plus the JAX suite's
+    3e-5 from the Pallas kernel (interpret mode).  One bf16 term (p
+    rounded once) breaks that bound."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
+    rng = np.random.default_rng(Sq * Sk + D + 7)
+    (jq, jk, jv), (q, k, v) = _inputs(rng, B, Hq, Hkv, Sq, Sk, D, Dv,
+                                      "float32")
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    bound = 2.0 ** -16 * float(v.abs().max())
+    want = _f32(attention_ref(q, k, v, **kw))
+    two = _f32(attention_ref(q, k, v, p_terms=2, **kw))
+    one = _f32(attention_ref(q, k, v, p_terms=1, **kw))
+    assert_allclose(two, want, rtol=0, atol=bound + 1e-6)
+    assert_allclose(two, _f32(_pallas(jq, jk, jv, **kw)), rtol=0,
+                    atol=bound + TOL["float32"])
+    assert np.abs(one - want).max() > bound + 1e-6
+    p = torch.from_numpy(rng.random(4096, dtype=np.float32))
+    split = fa_ops_ref.split_bf16(p, 2)
+    assert bool(((split - p).abs() <= 2.0 ** -16 * p.abs()).all())
 
 
 # gemma3-1b at the smoke run's decode: B = 8, 4 query heads on 1 KV head

@@ -6,7 +6,10 @@ odd widths, ragged word groups, K = 0, weights shorter than ``32 * W``,
 the pinned host-to-device put and the streamed retrieval path; for flash
 attention the JAX suite's shape sweep plus D = 256 with GQA 4:1, windows,
 rows without a key, strided inputs, the split-K decode kernel at the
-gemma3-1b decode shapes and a reduced LM on the card.
+gemma3-1b decode shapes, the wgmma/TMA prefill kernel on ragged tiles,
+windows, chunked prefill, GQA groups, every head-dim instantiation and
+cache slices, the old prefill kernel (kept as a yardstick) at gemma3-1b
+widths, and a reduced LM on the card.
 This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -21,7 +24,8 @@ from repro_torch.kernels import (attention, delta_apply_chain,
                                  delta_apply_chain_batched,
                                  delta_apply_fused_batched, launch_counts,
                                  segment_sum)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref, visible
 from repro_torch.kernels.delta_apply.ref import (delta_apply_chain_ref,
                                                  delta_apply_fused_ref)
 from repro_torch.runtime import torch_exec
@@ -213,6 +217,10 @@ def test_cuda_attention_matches_plain(cuda_device, shape, dtype):
     decode = Sq * Hq // Hkv <= 8
     assert (n1["flash_attention_decode"] - n0["flash_attention_decode"]
             == int(decode))
+    prefill = (dtype == torch.bfloat16 and not decode and D % 64 == 0 and
+               Dv % 64 == 0)
+    assert (n1["flash_attention_prefill"] - n0["flash_attention_prefill"]
+            == int(prefill))
     want = attention_ref(q, k, v, **kw)
     rtol, atol = (3e-5, 3e-5) if dtype == torch.float32 else (2 ** -6, 1e-5)
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=rtol,
@@ -246,6 +254,106 @@ def test_cuda_attention_strided_inputs(cuda_device, Sq, q_offset):
                              q_offset=q_offset)
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
                                    atol=1e-5)
+
+
+PREFILL_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_off)
+    (1, 1, 1, 64, 64, 64, 64, False, None, 0),       # one query, one key tile
+    (1, 1, 1, 64, 64, 256, 256, False, None, 0),
+    (1, 1, 1, 64, 64, 256, 256, True, None, 0),
+    (1, 4, 1, 300, 333, 256, 256, True, None, 33),   # Sq and Sk tails
+    (2, 4, 1, 200, 200, 256, 256, True, 17, 0),      # window < a key tile
+    (1, 4, 1, 500, 500, 256, 256, True, 100, 0),     # window not a multiple
+    (2, 4, 1, 70, 500, 256, 256, True, None, 430),   # chunked prefill
+    (1, 4, 1, 64, 640, 256, 256, True, 150, 576),    # chunked, windowed
+    (1, 2, 2, 130, 130, 128, 128, True, None, 0),    # G = 1
+    (1, 8, 1, 100, 164, 128, 128, True, None, 64),   # G = 8
+    (1, 16, 2, 90, 90, 64, 64, True, 40, 0),         # G = 8, Hkv = 2
+    (1, 2, 1, 200, 260, 192, 128, True, 37, 50),     # MLA prefill widths
+    (1, 4, 1, 100, 100, 64, 64, True, None, -5),     # rows with no key
+    (1, 4, 1, 40, 40, 128, 128, True, None, -100),   # no row sees a key
+    (1, 2, 1, 100, 90, 64, 64, False, 20, 10),       # not causal, window
+    (1, 2, 1, 66, 66, 192, 192, True, None, 0),      # padded to 256
+    (1, 2, 1, 66, 66, 64, 128, True, None, 0),       # padded to 128
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+def test_cuda_prefill_matches_plain(cuda_device, shape):
+    """The wgmma/TMA prefill kernel against the plain version, element by
+    element within 2^-6·|plain| + 1e-5 (two bf16 ulps: both sum in f32,
+    the kernel carries p as bf16 hi + lo, within 2^-16 |p|, and each
+    rounds once to bf16); rows that see no key exactly 0.  Only
+    ``flash_attention`` and ``flash_attention_prefill`` count the call."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
+    g = torch.Generator().manual_seed(Sq * Sk + D + Dv)
+    q, k, v = (torch.randn(s, generator=g).bfloat16() for s in
+               ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    assert fa_ops.prefill_shape(Sq, Hq, Hkv, D, Dv, q.dtype)
+    n0 = launch_counts()
+    got = attention(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert {n: n1[n] - n0[n] for n in n0 if n1[n] != n0[n]} == {
+        "flash_attention": 1, "flash_attention_prefill": 1}
+    want = attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2 ** -6,
+                               atol=1e-5)
+    keyless = ~visible(Sq, Sk, causal=causal, window=window,
+                       q_offset=qoff).any(dim=1)
+    assert torch.all(got.cpu()[:, :, keyless] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 2])
+def test_cuda_prefill_strided(cuda_device, layer):
+    """A transposed q projection ([B, S, Hq, D] viewed as [B, Hq, S, D])
+    and K/V as one layer of [L, B, Hkv, max_len, D] caches, attended over
+    the whole cache from ``q_offset`` 200 as a chunked prefill does: the
+    TMA maps read them through their strides, with no copy."""
+    L, B, Hkv, G, max_len, D, S, start = 3, 2, 2, 4, 400, 256, 150, 200
+    g = torch.Generator(device=cuda_device).manual_seed(layer)
+    ck = torch.randn(L, B, Hkv, max_len, D, generator=g, device=cuda_device,
+                     dtype=torch.bfloat16)
+    cv = torch.randn(L, B, Hkv, max_len, D, generator=g, device=cuda_device,
+                     dtype=torch.bfloat16)
+    q = torch.randn(B, S, Hkv * G, D, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    k, v = ck[layer], cv[layer]
+    args = fa_ops.kernel_args(q, k, v, causal=True, window=None,
+                              q_offset=start, scale=None)
+    assert args[0].data_ptr() == q.data_ptr()        # read in place
+    assert args[1].data_ptr() == k.data_ptr() and args[1].stride() == \
+        k.stride()
+    for window in (None, 64):
+        n0 = launch_counts()["flash_attention_prefill"]
+        got = attention(q, k, v, window=window, q_offset=start)
+        assert launch_counts()["flash_attention_prefill"] == n0 + 1
+        want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                             window=window, q_offset=start)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_mma_kernel_matches_plain(cuda_device):
+    """``attention_mma_kernel``, the prefill design before
+    ``flash_prefill.cu``, still matches the plain version at gemma3-1b
+    widths through ``ops._attention_mma`` (which counts no launch)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(2, 4, 100, 256, generator=g, device=cuda_device)
+    k = torch.randn(2, 1, 120, 256, generator=g, device=cuda_device)
+    v = torch.randn(2, 1, 120, 256, generator=g, device=cuda_device)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    n0 = launch_counts()
+    got = fa_ops._attention_mma(q, k, v, window=40, q_offset=20)
+    assert launch_counts() == n0
+    want = attention_ref(q, k, v, window=40, q_offset=20)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda
