@@ -7,19 +7,29 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 
 1. set-up: the card's name and power limit; every CUDA kernel built from
    ``src/repro_torch/kernels/csrc`` with one ``nvcc`` per source, all at
-   once, and ptxas's registers and spills for the prefill kernel;
+   once, and ptxas's registers, spills and shared memory for the prefill,
+   chain and segment-sum kernels;
 2. retrieval path: a ``growing_network(2_000_000)`` history (the
    generator's analogue of the paper's Dataset 1) indexed by a
    ``DeltaGraph``; 64 timepoints retrieved by
    ``execute_multipoint_torch(land_in_pool=True)`` and 8 by
    ``execute_singlepoint_fused`` with ``degrees()``, checked against the
    ``replay`` oracle.  Launch counts are zeroed just before and read just
-   after: each of the path's three kernels must have run;
+   after: each of the path's three kernels must have run, the fused
+   kernel once per fused retrieval (``delta_apply_fused_pair``: node and
+   edge planes in one launch) and segment-sum twice per ``degrees()``;
 3. retrieval kernels: each against its plain PyTorch version on the card,
    at full width (chain W = 2^21 words, K = 16, B = 8; fused W = 2^21,
    K = 16 with weights, ``live`` on and off; segment-sum on the degree
-   feed) and at the largest shape the path gave it; bit for bit (degrees
-   exactly), with kernel, plain, bound and library times;
+   feeds by source and by destination node, the second with hub buckets)
+   and at the largest shape the path gave it (for the fused kernel,
+   the largest pair call, and its edge plane alone); bit for bit (degrees
+   exactly, and
+   segment-sum also on general f32 and against ``index_add_``).  Kernel
+   and ``index_add_`` times are device times, a CUDA graph of repeated
+   calls replayed between CUDA events, beside the same calls in a host
+   loop (``host_loop_ms``: adds the wrapper's host work); plain and bound
+   times;
 4. churn: a ``churn_network`` history with deletes and transient slots,
    monolithic and streamed (``DeviceStager``) retrieval and fused
    analytics against ``replay``;
@@ -196,17 +206,21 @@ def visible_span(Sq: int, Sk: int, window, q_offset: int
     return pairs, lo, max(hi, lo)
 
 
-def print_ptxas(log: str) -> None:
-    """ptxas's registers and spills for each instantiation of the prefill
-    kernel, from the build's ``-Xptxas -v`` output."""
-    kernel = None
+def print_ptxas(log: str, kernel: str) -> None:
+    """ptxas's registers, spills and shared memory for each instantiation
+    of ``kernel``, from the build's ``-Xptxas -v`` output."""
+    name = None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*attention_prefill_kernel"
-                      r"ILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            kernel = f"attention_prefill_kernel<{m[1]}, {m[2]}>"
-        elif kernel and ("spill" in line or "registers" in line):
-            print(f"ptxas {kernel}: "
+            mangled = m[1].split(kernel, 1)
+            args = (re.findall(r"Li(n?\d+)E", mangled[1].split("EEv")[0])
+                    if len(mangled) == 2 else None)
+            name = None if args is None else (
+                f"{kernel}<{', '.join(a.replace('n', '-') for a in args)}>"
+                if args else kernel)
+        elif name and ("spill" in line or "registers" in line):
+            print(f"ptxas {name}: "
                   f"{line.strip().removeprefix('ptxas info    : ')}")
 
 
@@ -574,7 +588,10 @@ def main() -> int:
     build_s = _build.build()
     print(f"build: nvcc per source {json.dumps(build_s)}; all sources "
           f"{time.perf_counter() - t0:.3f} s wall (parallel)")
-    print_ptxas(_build.logs.get("flash_prefill", ""))
+    for source, kernel in (("flash_prefill", "attention_prefill_kernel"),
+                           ("delta_apply", "delta_apply_fused_kernel"),
+                           ("segment_sum", "segment_sum_bucketed_kernel")):
+        print_ptxas(_build.logs.get(source, ""), kernel)
 
     # ------------------------------------------------------------- main path
     t0 = time.perf_counter()
@@ -597,18 +614,19 @@ def main() -> int:
     # record the shapes the main path hands the kernels
     seen = {"chain": [], "fused": []}
     orig_chain = torch_exec.delta_apply_chain_batched
-    orig_fused = torch_exec.delta_apply_fused
+    orig_fused = torch_exec.delta_apply_fused_pair
 
     def rec_chain(b, a, d):
         seen["chain"].append(tuple(a.shape))
         return orig_chain(b, a, d)
 
-    def rec_fused(b, a, d, w=None, **kw):
-        seen["fused"].append((tuple(a.shape), w is not None))
-        return orig_fused(b, a, d, w, **kw)
+    def rec_fused(bn, an, dn, be, ae, de, wn=None, we=None, **kw):
+        seen["fused"].append((an.shape[0], an.shape[1], ae.shape[1],
+                              wn is not None))
+        return orig_fused(bn, an, dn, be, ae, de, wn, we, **kw)
 
     torch_exec.delta_apply_chain_batched = rec_chain
-    torch_exec.delta_apply_fused = rec_fused
+    torch_exec.delta_apply_fused_pair = rec_fused
 
     pool = GraphPool(uni)
     weights = rng.random(N, dtype=np.float32)
@@ -630,13 +648,24 @@ def main() -> int:
     t_fused = time.perf_counter() - t0
     launches = kernels.launch_counts()
     torch_exec.delta_apply_chain_batched = orig_chain
-    torch_exec.delta_apply_fused = orig_fused
+    torch_exec.delta_apply_fused_pair = orig_fused
     print(f"main path: multipoint 64 timepoints into GraphPool "
           f"{t_multi:.3f} s; fused + degrees at 8 timepoints "
           f"{t_fused:.3f} s; launches {json.dumps(launches)}")
     for name in RETRIEVAL_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the retrieval path")
+    # one fused launch lands a retrieval's node and edge planes together,
+    # and each degrees() call reduces by source and by destination
+    check(launches["delta_apply_chain"] == len(seen["chain"]),
+          f"{launches['delta_apply_chain']} chain launches for "
+          f"{len(seen['chain'])} calls")
+    check(launches["delta_apply_fused"] == len(fused_times) ==
+          len(seen["fused"]), f"{launches['delta_apply_fused']} fused "
+          f"launches for {len(fused_times)} fused retrievals")
+    check(launches["segment_sum_bucketed"] == 2 * len(fused_times),
+          f"{launches['segment_sum_bucketed']} segment-sum launches for "
+          f"{len(fused_times)} degrees() calls")
 
     for t in times[:: len(times) // 4]:
         truth = replay(uni, ev, t)
@@ -677,19 +706,41 @@ def main() -> int:
         print(f"kernel {name}: {json.dumps(rec)}")
         return rec
 
-    def chain_case(B, K, W):
-        bases = rand_words(gen, (B, W), dev)
-        adds = rand_words(gen, (B, K, W), dev)
-        dels = rand_words(gen, (B, K, W), dev)
-        got = kernels.delta_apply_chain_batched(bases, adds, dels)
-        want = delta_apply_chain_ref(bases, adds, dels)
+    def timed(fn, iters):
+        """Device time (CUDA-graph replay) and host-loop time of ``fn``."""
+        return {"ms": graph_ms(fn, iters), "host_loop_ms": cuda_ms(fn, iters)}
+
+    def chain_words(B, K, W):
+        return (rand_words(gen, (B, W), dev), rand_words(gen, (B, K, W), dev),
+                rand_words(gen, (B, K, W), dev))
+
+    def chain_bytes(B, K, W):
+        return B * (2 * K + 2) * W * 4.0, B * K * W * 3.0
+
+    def chain_case(B, K, W, iters):
+        words = chain_words(B, K, W)
+        got = kernels.delta_apply_chain_batched(*words)
+        want = delta_apply_chain_ref(*words)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"chain kernel differs at {B, K, W}")
-        err = max_abs_err(got, want)
-        ms = cuda_ms(lambda: kernels.delta_apply_chain_batched(
-            bases, adds, dels), 20)
-        plain = cuda_ms(lambda: delta_apply_chain_ref(bases, adds, dels), 5)
-        return err, ms, plain, B * (2 * K + 2) * W * 4.0, B * K * W * 3.0
+        t = timed(lambda: kernels.delta_apply_chain_batched(*words), iters)
+        plain = cuda_ms(lambda: delta_apply_chain_ref(*words), 5)
+        return max_abs_err(got, want), t, plain, *chain_bytes(B, K, W)
+
+    def fused_bytes(K, W, with_weights, emit_live):
+        nbytes = ((2 * K + 1) * W * 4.0 + W * 4 + -(-W // 1024) * 4 + W * 4
+                  + W * 32 * 4.0 * (with_weights + emit_live))
+        return nbytes, K * W * 3.0 + W * 32.0 * (2 if with_weights else 0)
+
+    def check_fused(got, want, label):
+        err = 0.0
+        for field, g, r in zip(got._fields, got, want):
+            if r is None:
+                check(g is None, f"fused {field} should be None")
+                continue
+            check(same_bits(g, r), f"fused {field} differs at {label}")
+            err = max(err, max_abs_err(g, r))
+        return err
 
     def fused_case(K, W, with_weights, emit_live):
         base = rand_words(gen, (W,), dev)
@@ -702,87 +753,127 @@ def main() -> int:
         want = delta_apply_fused_ref(base, adds, dels, w,
                                      emit_live=emit_live)
         torch.cuda.synchronize()
-        err = 0.0
-        for field, g, r in zip(got._fields, got, want):
-            if r is None:
-                check(g is None, f"fused {field} should be None")
-                continue
-            check(same_bits(g, r), f"fused {field} differs at K={K} W={W} "
-                  f"weights={with_weights} live={emit_live}")
-            err = max(err, max_abs_err(g, r))
-        ms = cuda_ms(lambda: kernels.delta_apply_fused(
-            base, adds, dels, w, emit_live=emit_live), 20)
+        err = check_fused(got, want, f"K={K} W={W} weights={with_weights} "
+                                     f"live={emit_live}")
+        t = timed(lambda: kernels.delta_apply_fused(
+            base, adds, dels, w, emit_live=emit_live),
+            20 if W > 2 ** 20 else 200)
         plain = cuda_ms(lambda: delta_apply_fused_ref(
             base, adds, dels, w, emit_live=emit_live), 3)
-        G = -(-W // 1024)
-        nbytes = (2 * K + 1) * W * 4.0 + W * 4 + G * 4 + W * 4
-        ops = K * W * 3.0 + W * 32.0 * (2 if with_weights else 0)
-        if with_weights:
-            nbytes += W * 32 * 4.0
-        if emit_live:
-            nbytes += W * 32 * 4.0
-        return err, ms, plain, nbytes, ops
+        return err, t, plain, *fused_bytes(K, W, with_weights, emit_live)
+
+    def fused_pair_case(K, W_n, W_e):
+        """Both planes of a fused retrieval in one call: the node plane
+        with weights, both with ``live``, as the main path lands them."""
+        planes = [(rand_words(gen, (W,), dev), rand_words(gen, (K, W), dev),
+                   rand_words(gen, (K, W), dev)) for W in (W_n, W_e)]
+        w = torch.rand(W_n * 32, generator=gen, device=dev)
+        got = kernels.delta_apply_fused_pair(*planes[0], *planes[1], w)
+        want = (delta_apply_fused_ref(*planes[0], w),
+                delta_apply_fused_ref(*planes[1]))
+        torch.cuda.synchronize()
+        err = max(check_fused(g, r, f"pair K={K} W={W_n}+{W_e}")
+                  for g, r in zip(got, want))
+        t = timed(lambda: kernels.delta_apply_fused_pair(
+            *planes[0], *planes[1], w), 200)
+        plain = cuda_ms(lambda: (delta_apply_fused_ref(*planes[0], w),
+                                 delta_apply_fused_ref(*planes[1])), 3)
+        nb_n, ops_n = fused_bytes(K, W_n, True, True)
+        nb_e, ops_e = fused_bytes(K, W_e, False, True)
+        return err, t, plain, nb_n + nb_e, ops_n + ops_e
 
     da_src = "src/repro_torch/kernels/csrc/delta_apply.cu"
     da_tpu = "src/repro/kernels/delta_apply/delta_apply.py"
     (cB, cK, cW) = max(seen["chain"], key=lambda s: s[0] * (s[1] + 1) * s[2])
-    err, ms, plain, nb, ops = chain_case(8, 16, 2 ** 21)
-    m_err, m_ms, m_plain, m_nb, m_ops = chain_case(cB, cK, cW)
+    err, t, plain, nb, ops = chain_case(8, 16, 2 ** 21, 20)
+    m_err, m_t, m_plain, m_nb, m_ops = chain_case(cB, cK, cW, 200)
     record.append(entry(
-        "delta_apply_chain", da_src, f"{da_tpu}:45", ms, plain, err, nb, ops,
-        shape="B=8 K=16 W=2^21", at_main_path_shape={
-            "shape": f"B={cB} K={cK} W={cW}", "ms": m_ms, "plain_ms": m_plain,
-            "bound_ms": bound_ms(m_nb, m_ops)[0], "max_abs_err": m_err}))
-
-    err_off, ms_off, plain_off, nb_off, ops_off = fused_case(
-        16, 2 ** 21, True, False)
-    err, ms, plain, nb, ops = fused_case(16, 2 ** 21, True, True)
-    (fK, fW), _ = max(seen["fused"], key=lambda s: s[0][0] * s[0][1])
-    m_err, m_ms, m_plain, m_nb, m_ops = fused_case(fK, fW, False, True)
-    record.append(entry(
-        "delta_apply_fused", da_src, f"{da_tpu}:151", ms, plain,
-        max(err, err_off, m_err), nb, ops,
-        shape="K=16 W=2^21 weights live", emit_live_off={
-            "ms": ms_off, "plain_ms": plain_off,
-            "bound_ms": bound_ms(nb_off, ops_off)[0]},
+        "delta_apply_chain", da_src, f"{da_tpu}:45", t["ms"], plain, err, nb,
+        ops, host_loop_ms=t["host_loop_ms"], shape="B=8 K=16 W=2^21",
         at_main_path_shape={
-            "shape": f"K={fK} W={fW} live", "ms": m_ms, "plain_ms": m_plain,
+            "shape": f"B={cB} K={cK} W={cW}", **m_t, "plain_ms": m_plain,
             "bound_ms": bound_ms(m_nb, m_ops)[0], "max_abs_err": m_err}))
 
-    # segment sum on the main path's degree feed: a live indicator over
-    # every edge slot, bucketed by source node as degrees() does
+    err_off, t_off, plain_off, nb_off, ops_off = fused_case(
+        16, 2 ** 21, True, False)
+    err, t, plain, nb, ops = fused_case(16, 2 ** 21, True, True)
+    fK, fWn, fWe, _ = max(seen["fused"], key=lambda s: s[0] * (s[1] + s[2]))
+    e_err, e_t, e_plain, e_nb, e_ops = fused_case(fK, fWe, False, True)
+    m_err, m_t, m_plain, m_nb, m_ops = fused_pair_case(fK, fWn, fWe)
+    record.append(entry(
+        "delta_apply_fused", da_src, f"{da_tpu}:151", t["ms"], plain,
+        max(err, err_off, e_err, m_err), nb, ops,
+        host_loop_ms=t["host_loop_ms"], shape="K=16 W=2^21 weights live",
+        emit_live_off={**t_off, "plain_ms": plain_off,
+                       "bound_ms": bound_ms(nb_off, ops_off)[0]},
+        at_main_path_shape={
+            "shape": f"one pair call: K={fK} W={fWn} (nodes, weights) + "
+                     f"{fWe} (edges), live", **m_t, "plain_ms": m_plain,
+            "bound_ms": bound_ms(m_nb, m_ops)[0], "max_abs_err": m_err},
+        edge_plane_alone={
+            "shape": f"K={fK} W={fWe} live", **e_t, "plain_ms": e_plain,
+            "bound_ms": bound_ms(e_nb, e_ops)[0], "max_abs_err": e_err}))
+
+    # segment sum on the main path's degree feeds: a live indicator over
+    # every edge slot, bucketed by source node and by destination node as
+    # degrees() does
     live = (torch.rand(E, generator=gen, device=dev) < 0.5).to(torch.float32)
-    t0 = time.perf_counter()
-    order, local, ME = bucket_edges(uni.edge_src, N, 128)
-    t_bucket = time.perf_counter() - t0
-    NB = local.shape[0]
-    data = live[torch.from_numpy(order.reshape(-1)).to(dev)].reshape(NB, ME, 1)
-    lid = torch.from_numpy(local).to(dev)
-    got = segment_sum_bucketed(data, lid, block_n=128)
-    want = segment_sum_bucketed_ref(data, lid, block_n=128)
-    src_ids = torch.from_numpy(uni.edge_src.astype(np.int64)).to(dev)
-    lib = torch.zeros(N, dtype=torch.float32, device=dev).index_add_(
-        0, src_ids, live)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "segment-sum kernel differs from plain")
-    check(torch.equal(got.reshape(-1)[:N], lib), "segment-sum differs from "
-          "the library scatter")
-    # general f32 at the same shape: both add each row's edges in order
-    noise = torch.randn(data.shape, generator=gen, device=dev)
-    check(same_bits(segment_sum_bucketed(noise, lid, block_n=128),
-                    segment_sum_bucketed_ref(noise, lid, block_n=128)),
-          "segment-sum kernel differs from plain on general f32")
-    ms = cuda_ms(lambda: segment_sum_bucketed(data, lid, block_n=128), 20)
-    plain = cuda_ms(lambda: segment_sum_bucketed_ref(data, lid,
-                                                      block_n=128), 5)
-    lib_ms = cuda_ms(lambda: torch.zeros(N, dtype=torch.float32, device=dev)
-                     .index_add_(0, src_ids, live), 20)
+
+    def segsum_case(ends):
+        t0 = time.perf_counter()
+        order, local, ME = bucket_edges(ends, N, 128)
+        t_bucket = time.perf_counter() - t0
+        NB = local.shape[0]
+        data = live[torch.from_numpy(order.reshape(-1)).to(dev)].reshape(
+            NB, ME, 1)
+        lid = torch.from_numpy(local).to(dev)
+        got = segment_sum_bucketed(data, lid, block_n=128)
+        want = segment_sum_bucketed_ref(data, lid, block_n=128)
+        ids = torch.from_numpy(ends.astype(np.int64)).to(dev)
+
+        def library():
+            return torch.zeros(N, dtype=torch.float32, device=dev).index_add_(
+                0, ids, live)
+
+        lib = library()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"segment-sum kernel differs from "
+              f"plain at ME={ME}")
+        check(torch.equal(got.reshape(-1)[:N], lib), f"segment-sum differs "
+              f"from the library scatter at ME={ME}")
+        # general f32 at the same shape: both add each row's edges in order
+        noise = torch.randn(data.shape, generator=gen, device=dev)
+        check(same_bits(segment_sum_bucketed(noise, lid, block_n=128),
+                        segment_sum_bucketed_ref(noise, lid, block_n=128)),
+              f"segment-sum kernel differs from plain on general f32 at "
+              f"ME={ME}")
+        t = timed(lambda: segment_sum_bucketed(data, lid, block_n=128), 200)
+        plain = cuda_ms(lambda: segment_sum_bucketed_ref(data, lid,
+                                                          block_n=128), 5)
+        t_lib = timed(library, 200)
+        nbytes = E * 8.0 + NB * 128 * 4.0
+        return nbytes, {
+                "shape": f"NB={NB} ME={ME} D=1 (E={E})", **t,
+                "plain_ms": plain, "bound_ms": bound_ms(nbytes, float(E))[0],
+                "max_abs_err": max_abs_err(got, want),
+                "library_ms": t_lib["ms"],
+                "library_host_loop_ms": t_lib["host_loop_ms"],
+                "bucket_edges_host_s": t_bucket}
+
+    nbytes, src_feed = segsum_case(uni.edge_src)
+    _, dst_feed = segsum_case(uni.edge_dst)
     record.append(entry(
         "segment_sum_bucketed", "src/repro_torch/kernels/csrc/segment_sum.cu",
-        "src/repro/kernels/segment_sum/segment_sum.py:42", ms, plain,
-        max_abs_err(got, want), E * 8.0 + NB * 128 * 4.0, float(E),
-        library_ms=lib_ms,
-        shape=f"NB={NB} ME={ME} D=1 (E={E})", bucket_edges_host_s=t_bucket))
+        "src/repro/kernels/segment_sum/segment_sum.py:42", src_feed["ms"],
+        src_feed["plain_ms"],
+        max(src_feed["max_abs_err"], dst_feed["max_abs_err"]), nbytes,
+        float(E),
+        library_ms=src_feed["library_ms"],
+        host_loop_ms=src_feed["host_loop_ms"],
+        library_host_loop_ms=src_feed["library_host_loop_ms"],
+        shape=f"source feed: {src_feed['shape']}",
+        bucket_edges_host_s=src_feed["bucket_edges_host_s"],
+        destination_feed=dst_feed))
 
     # ------------------------------------------------------------------ churn
     t0 = time.perf_counter()

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("delta_apply", "flash_attention", "flash_decode", "flash_prefill",
@@ -108,3 +110,20 @@ def check(lib: ctypes.CDLL, fn: str, err: int) -> None:
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA launch {fn} failed: {msg} ({err})")
+
+
+# the raw cudaStream_t of a device's current stream, without building a
+# torch.cuda.Stream (the public call below does, at a few microseconds)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def launch(lib: ctypes.CDLL, fn: str, t: torch.Tensor, *args) -> None:
+    """``lib.<fn>(*args, stream)`` on the CUDA device of ``t`` with that
+    device's current stream; raises if the launch failed.  The device is
+    switched only when it is not the current one."""
+    index = t.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(lib, fn, t, *args)
+    check(lib, fn, getattr(lib, fn)(*args, _raw_stream(index)))

@@ -31,48 +31,47 @@ _SIGNATURES = {
     "delta_apply_chain_launch": [_P, _P, _P, _P, _I, _I, _L, _P],
     "delta_apply_fused_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _L, _I, _P],
+    "delta_apply_fused_pair_launch": [*[_P] * 8, _L, *[_P] * 8, _L,
+                                      _I, _I, _I, _P],
 }
-_MAX_BLOCK_W = 8192          # the fused kernel keeps a group's words in smem
+_lib: ctypes.CDLL | None = None
 
 
-def _lib() -> ctypes.CDLL:
-    return _build.load("delta_apply", _SIGNATURES)
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = _build.load("delta_apply", _SIGNATURES)
+    return _lib
 
 
 def _check_words(base, adds, dels) -> tuple[int, int, int]:
-    """Validate ``bases [B, W]``, ``adds/dels [B, K, W]`` int32, contiguous,
-    on one device; returns ``(B, K, W)``."""
-    for name, t in (("base", base), ("adds", adds), ("dels", dels)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32 words, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if base.dim() != 2 or adds.dim() != 3 or adds.shape != dels.shape:
+    """Validate ``base [B, W]`` and ``adds/dels [B, K, W]`` (or ``[W]`` and
+    ``[K, W]``, B = 1) int32, contiguous, on one device; returns
+    ``(B, K, W)``."""
+    if not base.dtype == adds.dtype == dels.dtype == torch.int32:
+        raise TypeError(f"words must be int32, got base {base.dtype}, adds "
+                        f"{adds.dtype}, dels {dels.dtype}")
+    if not (base.is_contiguous() and adds.is_contiguous()
+            and dels.is_contiguous()):
+        raise ValueError("base, adds and dels must be contiguous")
+    if (adds.dim() not in (2, 3) or adds.shape != dels.shape
+            or base.shape != adds.shape[:-2] + adds.shape[-1:]):
         raise ValueError(f"bad shapes base {tuple(base.shape)}, adds "
                          f"{tuple(adds.shape)}, dels {tuple(dels.shape)}")
-    B, K, W = adds.shape
-    if tuple(base.shape) != (B, W):
-        raise ValueError(f"base {tuple(base.shape)} does not match "
-                         f"adds {tuple(adds.shape)}")
-    if len({base.device, adds.device, dels.device}) != 1:
+    if not base.get_device() == adds.get_device() == dels.get_device():
         raise ValueError("base, adds and dels must lie on one device")
-    return B, K, W
+    K, W = adds.shape[-2:]
+    return (adds.shape[0] if adds.dim() == 3 else 1), K, W
 
 
 def _chain_kernel(bases, adds, dels) -> torch.Tensor:
     B, K, W = _check_words(bases, adds, dels)
     out = torch.empty_like(bases)
-    lib = _lib()
-    with torch.cuda.device(bases.device):
-        err = lib.delta_apply_chain_launch(
-            bases.data_ptr(), adds.data_ptr(), dels.data_ptr(),
-            out.data_ptr(), B, K, W, _stream(bases))
-    _build.check(lib, "delta_apply_chain", err)
-    launches["delta_apply_chain"] += 1
+    if B and W:
+        _build.launch(_load(), "delta_apply_chain_launch", bases,
+                      bases.data_ptr(), adds.data_ptr(), dels.data_ptr(),
+                      out.data_ptr(), B, K, W)
+        launches["delta_apply_chain"] += 1
     return out
 
 
@@ -81,7 +80,7 @@ def delta_apply_chain(base: torch.Tensor, adds: torch.Tensor,
     """Land a K-delta chain: ``base [W]``, ``adds/dels [K, W]`` -> ``[W]``."""
     if not use_kernel(base, adds, dels):
         return delta_apply_chain_ref(base, adds, dels)
-    return _chain_kernel(base[None], adds[None], dels[None])[0]
+    return _chain_kernel(base, adds, dels)
 
 
 def delta_apply_chain_batched(bases: torch.Tensor, adds: torch.Tensor,
@@ -129,33 +128,43 @@ class FusedOut(NamedTuple):
         return self.accw.cpu().numpy().sum(axis=-1, dtype=np.float32)
 
 
-def _fused_kernel(bases, adds, dels, weights, block_w, emit_live):
+def _fused_plane(bases, adds, dels, weights, block_w, emit_live):
+    """Checked inputs and new outputs of one plane for the fused kernel:
+    ``(B, K, W, outputs, pointers, weights)``, the pointers in the launch
+    functions' order (base, adds, dels, weights, mask, pop, accw, live).
+    The caller holds the padded ``weights`` until the launch is enqueued,
+    so that the allocator cannot hand its memory out before."""
     B, K, W = _check_words(bases, adds, dels)
-    if not 1 <= block_w <= _MAX_BLOCK_W:
-        raise ValueError(f"block_w must be in [1, {_MAX_BLOCK_W}]")
-    G = -(-W // block_w)
-    dev = bases.device
+    if block_w < 1:
+        raise ValueError(f"block_w must be positive, got {block_w}")
     w_ptr = None
     if weights is not None:
-        weights = pad_weights(weights.to(dev), W)
+        if not (weights.dtype == torch.float32 and weights.dim() == 1
+                and weights.shape[0] == 32 * W and weights.is_contiguous()
+                and weights.get_device() == bases.get_device()):
+            weights = pad_weights(weights.to(bases.device), W)
         if weights.data_ptr() % 16:          # the kernel loads float4s
             weights = weights.clone()
         w_ptr = weights.data_ptr()
+    lead = bases.shape[:-1]
     mask = torch.empty_like(bases)
-    pop = torch.empty((B, G), dtype=torch.int32, device=dev)
-    accw = torch.empty((B, W), dtype=torch.float32, device=dev)
-    live = (torch.empty((B, W * 32), dtype=torch.float32, device=dev)
-            if emit_live else None)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.delta_apply_fused_launch(
-            bases.data_ptr(), adds.data_ptr(), dels.data_ptr(), w_ptr,
+    pop = bases.new_empty((*lead, -(-W // block_w)))
+    accw = torch.empty_like(bases, dtype=torch.float32)
+    live = (accw.new_empty((*lead, W * 32)) if emit_live else None)
+    ptrs = (bases.data_ptr(), adds.data_ptr(), dels.data_ptr(), w_ptr,
             mask.data_ptr(), pop.data_ptr(), accw.data_ptr(),
-            None if live is None else live.data_ptr(),
-            B, K, W, block_w, _stream(bases))
-    _build.check(lib, "delta_apply_fused", err)
-    launches["delta_apply_fused"] += 1
-    return mask, pop, accw, live
+            None if live is None else live.data_ptr())
+    return B, K, W, (mask, pop, accw, live), ptrs, weights
+
+
+def _fused_kernel(bases, adds, dels, weights, block_w, emit_live):
+    B, K, W, outs, ptrs, weights = _fused_plane(bases, adds, dels, weights,
+                                                block_w, emit_live)
+    if B and W:
+        _build.launch(_load(), "delta_apply_fused_launch", bases, *ptrs,
+                      B, K, W, block_w)
+        launches["delta_apply_fused"] += 1
+    return outs
 
 
 def delta_apply_fused(base: torch.Tensor, adds: torch.Tensor,
@@ -172,10 +181,8 @@ def delta_apply_fused(base: torch.Tensor, adds: torch.Tensor,
     if not use_kernel(base, adds, dels, weights):
         return FusedOut(*delta_apply_fused_ref(
             base, adds, dels, weights, block_w=block_w, emit_live=emit_live))
-    mask, pop, accw, live = _fused_kernel(base[None], adds[None], dels[None],
-                                          weights, block_w, emit_live)
-    return FusedOut(mask[0], pop[0], accw[0],
-                    None if live is None else live[0])
+    return FusedOut(*_fused_kernel(base, adds, dels, weights, block_w,
+                                   emit_live))
 
 
 def delta_apply_fused_batched(bases: torch.Tensor, adds: torch.Tensor,
@@ -191,3 +198,38 @@ def delta_apply_fused_batched(bases: torch.Tensor, adds: torch.Tensor,
             bases, adds, dels, weights, block_w=block_w, emit_live=emit_live))
     return FusedOut(*_fused_kernel(bases, adds, dels, weights, block_w,
                                    emit_live))
+
+
+def delta_apply_fused_pair(base_n: torch.Tensor, adds_n: torch.Tensor,
+                           dels_n: torch.Tensor, base_e: torch.Tensor,
+                           adds_e: torch.Tensor, dels_e: torch.Tensor,
+                           weights_n: torch.Tensor | None = None,
+                           weights_e: torch.Tensor | None = None, *,
+                           block_w: int = 1024, emit_live: bool = True
+                           ) -> tuple[FusedOut, FusedOut]:
+    """Both planes of a singlepoint retrieval in one launch: the node plane
+    ``base_n [W_n]``, ``adds_n/dels_n [K, W_n]`` with optional per-slot
+    ``weights_n``, and the edge plane over ``W_e`` words (same ``K``) ->
+    ``(node, edge)`` :class:`FusedOut`, the same as two
+    :func:`delta_apply_fused` calls."""
+    if not use_kernel(base_n, adds_n, dels_n, weights_n, base_e, adds_e,
+                      dels_e, weights_e):
+        return tuple(FusedOut(*delta_apply_fused_ref(
+            b, a, d, w, block_w=block_w, emit_live=emit_live))
+            for b, a, d, w in ((base_n, adds_n, dels_n, weights_n),
+                               (base_e, adds_e, dels_e, weights_e)))
+    if base_n.dim() != 1 or base_e.dim() != 1:
+        raise ValueError("delta_apply_fused_pair takes unbatched planes")
+    _, K, W_n, outs_n, ptrs_n, weights_n = _fused_plane(
+        base_n, adds_n, dels_n, weights_n, block_w, emit_live)
+    _, K_e, W_e, outs_e, ptrs_e, weights_e = _fused_plane(
+        base_e, adds_e, dels_e, weights_e, block_w, emit_live)
+    if K_e != K:
+        raise ValueError(f"node plane has K={K}, edge plane K={K_e}")
+    if base_n.get_device() != base_e.get_device():
+        raise ValueError("node and edge planes must lie on one device")
+    if W_n or W_e:
+        _build.launch(_load(), "delta_apply_fused_pair_launch", base_n,
+                      *ptrs_n, W_n, *ptrs_e, W_e, 1, K, block_w)
+        launches["delta_apply_fused"] += 1
+    return FusedOut(*outs_n), FusedOut(*outs_e)

@@ -19,11 +19,12 @@ import torch
 def use_kernel(*tensors) -> bool:
     """True for all-CUDA inputs, False for all-CPU inputs; ``None``
     entries (optional inputs) are ignored."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cuda"}:
+    given = [t for t in tensors if t is not None]
+    if given and all(t.is_cuda for t in given):
         return True
-    if kinds == {"cpu"}:
+    if given and all(t.is_cpu for t in given):
         return False
+    kinds = {t.device.type for t in given}
     raise ValueError(f"kernel inputs must all lie on the CPU or all on CUDA, "
                      f"got {sorted(kinds)}")
 

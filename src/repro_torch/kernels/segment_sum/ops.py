@@ -21,6 +21,14 @@ launches = {"segment_sum_bucketed": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"segment_sum_bucketed_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}
+_lib: ctypes.CDLL | None = None
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = _build.load("segment_sum", _SIGNATURES)
+    return _lib
 
 
 def bucket_edges(seg_ids: np.ndarray, num_segments: int, block_n: int
@@ -64,19 +72,19 @@ def segment_sum_bucketed(data: torch.Tensor, local_ids: torch.Tensor, *,
         raise TypeError("segment_sum_bucketed takes f32 data, int32 ids")
     if not (data.is_contiguous() and local_ids.is_contiguous()):
         raise ValueError("segment_sum_bucketed inputs must be contiguous")
-    NB, ME, D = data.shape
-    if tuple(local_ids.shape) != (NB, ME):
+    if data.dim() != 3 or local_ids.shape != data.shape[:2]:
         raise ValueError(f"local_ids {tuple(local_ids.shape)} does not match "
                          f"data {tuple(data.shape)}")
+    if data.get_device() != local_ids.get_device():
+        raise ValueError("data and local_ids must lie on one device")
+    NB, ME, D = data.shape
     out = torch.empty((NB, block_n, D), dtype=torch.float32,
                       device=data.device)
-    lib = _build.load("segment_sum", _SIGNATURES)
-    with torch.cuda.device(data.device):
-        err = lib.segment_sum_bucketed_launch(
-            data.data_ptr(), local_ids.data_ptr(), out.data_ptr(), NB, ME, D,
-            block_n, torch.cuda.current_stream(data.device).cuda_stream)
-    _build.check(lib, "segment_sum_bucketed", err)
-    launches["segment_sum_bucketed"] += 1
+    if NB:
+        _build.launch(_load(), "segment_sum_bucketed_launch", data,
+                      data.data_ptr(), local_ids.data_ptr(), out.data_ptr(),
+                      NB, ME, D, block_n)
+        launches["segment_sum_bucketed"] += 1
     return out
 
 

@@ -31,7 +31,7 @@ from ..core.deltagraph import DeltaGraph, Plan
 from ..core.events import (EV_DEL_EDGE, EV_DEL_NODE, EV_NEW_EDGE, EV_NEW_NODE)
 from ..core.query import NO_ATTRS
 from ..kernels import (FusedOut, delta_apply_chain, delta_apply_chain_batched,
-                       delta_apply_fused, segment_sum)
+                       delta_apply_fused_pair, segment_sum)
 from ..kernels.policy import resolve_device
 from ..storage import columnar as col
 
@@ -217,10 +217,11 @@ def execute_singlepoint_fused(dg: DeltaGraph, t: int, *,
     """Single-point retrieval with analytics fused into the apply pass.
 
     Same plan and chain lowering as :func:`execute_singlepoint_torch`, but
-    landed by the fused kernel: while each thread holds its word's landed
-    chain state in registers it also emits popcount/degree partials and
-    (optionally, via ``node_weights [num_nodes] f32``) a PageRank-style
-    push accumulator — the separate analytics sweep over the mask is gone.
+    landed by the fused kernel, node and edge planes in one launch: while
+    each thread holds its word's landed chain state in registers it also
+    emits popcount/degree partials and (optionally, via ``node_weights
+    [num_nodes] f32``) a PageRank-style push accumulator — the separate
+    analytics sweep over the mask is gone.
     Transient-slot clearing folds into the chain as a final delete step, so
     analytics and the returned bool masks agree bit-for-bit.
     """
@@ -239,10 +240,10 @@ def execute_singlepoint_fused(dg: DeltaGraph, t: int, *,
     w = None
     if node_weights is not None:
         w = _to_device(np.asarray(node_weights, np.float32).reshape(-1), dev)
-    fn = delta_apply_fused(_to_device(base_n, dev), _to_device(n_adds, dev),
-                           _to_device(n_dels, dev), w)
-    fe = delta_apply_fused(_to_device(base_e, dev), _to_device(e_adds, dev),
-                           _to_device(e_dels, dev))
+    fn, fe = delta_apply_fused_pair(
+        _to_device(base_n, dev), _to_device(n_adds, dev),
+        _to_device(n_dels, dev), _to_device(base_e, dev),
+        _to_device(e_adds, dev), _to_device(e_dels, dev), w)
     nm = bmod.np_unpack(bmod.to_numpy_words(fn.mask), U_n)
     em = bmod.np_unpack(bmod.to_numpy_words(fe.mask), U_e)
     return nm, em, SnapshotAnalytics(fn, fe, dg)

@@ -2,8 +2,12 @@
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (a CUDA
 kernel has no CPU mode).  They cover the shapes ``chip_smoke.py`` does not:
-odd widths, ragged word groups, K = 0, weights shorter than ``32 * W``,
-the pinned host-to-device put and the streamed retrieval path; for flash
+odd widths, ragged word groups, K = 0 and K past the fused kernel's
+unrolled limit, weights shorter than ``32 * W``, both planes in one fused
+launch, segment-sum's bucket layouts (a bucket of only padding, empty rows,
+a hub bucket longer than the kernel's shared-memory tile; D 1, 4 and 16,
+block_n 8, 128 and 256), the pinned host-to-device put and the streamed
+retrieval path; for flash
 attention the JAX suite's shape sweep plus D = 256 with GQA 4:1, windows,
 rows without a key, strided inputs, the split-K decode kernel at the
 gemma3-1b decode shapes, the wgmma/TMA prefill kernel on ragged tiles,
@@ -22,9 +26,12 @@ from repro_torch.core import DeltaGraph
 from repro_torch.data.generators import churn_network
 from repro_torch.kernels import (attention, delta_apply_chain,
                                  delta_apply_chain_batched,
-                                 delta_apply_fused_batched, launch_counts,
+                                 delta_apply_fused_batched,
+                                 delta_apply_fused_pair, launch_counts,
                                  segment_sum)
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.segment_sum import (bucket_edges,
+                                             segment_sum_bucketed)
 from repro_torch.kernels.flash_attention.ref import attention_ref, visible
 from repro_torch.kernels.delta_apply.ref import (delta_apply_chain_ref,
                                                  delta_apply_fused_ref)
@@ -79,7 +86,14 @@ def test_cuda_chain_matches_plain(cuda_device, B, K, W):
 @pytest.mark.parametrize("B,K,W,block_w", [(1, 0, 1, 128), (1, 3, 100, 128),
                                            (2, 2, 1000, 256),
                                            (3, 4, 3000, 1024),
-                                           (1, 1, 2049, 1024)])
+                                           (1, 1, 2049, 1024),
+                                           # K at the unrolled limit and past
+                                           # it; groups that split a warp or
+                                           # span many tiles
+                                           (3, 8, 18764, 384),
+                                           (2, 9, 4097, 100),
+                                           (1, 16, 43737, 1024),
+                                           (1, 13, 255, 8192)])
 @pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("emit_live", [True, False])
 def test_cuda_fused_matches_plain(cuda_device, B, K, W, block_w, weighted,
@@ -97,6 +111,31 @@ def test_cuda_fused_matches_plain(cuda_device, B, K, W, block_w, weighted,
     ref = delta_apply_fused_ref(_t(bases), _t(adds), _t(dels), wt,
                                 block_w=block_w, emit_live=emit_live)
     _assert_fused_equal(got, type(got)(*ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,W_n,W_e", [(7, 18764, 43737), (0, 5, 300),
+                                       (11, 1024, 1027), (2, 0, 33)])
+@pytest.mark.parametrize("emit_live", [True, False])
+def test_cuda_fused_pair_matches_plain(cuda_device, K, W_n, W_e, emit_live):
+    """Both planes of a singlepoint retrieval (weights on the node plane)
+    in one launch, counted once, bit for bit."""
+    rng = np.random.default_rng(K + W_n + W_e)
+    node = _rand_chain(rng, W_n, K, True, B=1)
+    edge = _rand_chain(rng, W_e, K, False, B=1)
+    planes = [[_t(a[0]) for a in p[:3]] for p in (node, edge)]
+    wn = torch.from_numpy(node[3])
+    n0 = launch_counts()["delta_apply_fused"]
+    got = delta_apply_fused_pair(
+        *(a.to(cuda_device) for a in planes[0]),
+        *(a.to(cuda_device) for a in planes[1]), wn.to(cuda_device),
+        emit_live=emit_live)
+    torch.cuda.synchronize()
+    assert launch_counts()["delta_apply_fused"] == n0 + (1 if W_n + W_e
+                                                         else 0)
+    for out, p, w in zip(got, planes, (wn, None)):
+        ref = delta_apply_fused_ref(*p, w, emit_live=emit_live)
+        _assert_fused_equal(out, type(out)(*ref))
 
 
 @pytest.mark.cuda
@@ -130,6 +169,68 @@ def test_cuda_segment_sum_matches_plain(cuda_device, E, N, D, bn):
         got = segment_sum(torch.from_numpy(data).to(cuda_device), ids, N,
                           block_n=bn).cpu()
         ref = segment_sum(torch.from_numpy(data), ids, N, block_n=bn)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _layout_ids(layout: str, bn: int, rng) -> tuple[np.ndarray, int]:
+    """Segment ids of three buckets: the middle one only padding, empty
+    rows between filled ones, or one hub row holding most of 30,000
+    entries (a bucket longer than the kernel's shared-memory tile)."""
+    if layout == "padding_bucket":
+        ids = rng.integers(0, 2 * bn, 6 * bn)
+        return np.where(ids >= bn, ids + bn, ids), 3 * bn
+    if layout == "gaps":
+        return 3 * rng.integers(0, bn, 4 * bn), 3 * bn + 1
+    ids = rng.integers(0, 2 * bn, 30_000)
+    ids[rng.random(ids.size) < 0.85] = bn // 2 + 1
+    return ids, 3 * bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padding_bucket", "gaps", "hub"])
+@pytest.mark.parametrize("D", [1, 4, 16])
+@pytest.mark.parametrize("bn", [8, 128, 256])
+def test_cuda_segment_sum_layouts(cuda_device, layout, D, bn):
+    rng = np.random.default_rng(len(layout) + D + bn)
+    ids, N = _layout_ids(layout, bn, rng)
+    if layout == "hub":
+        assert bucket_edges(ids, N, bn)[2] >= 20_000
+    binary = (rng.random((ids.size, D)) < 0.5).astype(np.float32)
+    general = rng.standard_normal((ids.size, D)).astype(np.float32)
+    for data in (binary, general):
+        n0 = launch_counts()["segment_sum_bucketed"]
+        got = segment_sum(torch.from_numpy(data).to(cuda_device), ids, N,
+                          block_n=bn).cpu()
+        assert launch_counts()["segment_sum_bucketed"] == n0 + 1
+        ref = segment_sum(torch.from_numpy(data), ids, N, block_n=bn)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ME", [700, 1024, 2100])
+def test_cuda_segment_sum_empty_and_short_buckets(cuda_device, ME):
+    """ME = 0 gives zeros; a bucket whose valid prefix ends at or next to a
+    round of ids (256), a slice of a long bucket's warps or a staged tile
+    (1,024 and 4,096 floats) ends there; buckets of a warp each (ME up to
+    1,024) and of a block each (longer)."""
+    out = segment_sum_bucketed(torch.zeros(3, 0, 2, device=cuda_device),
+                               torch.zeros(3, 0, dtype=torch.int32,
+                                           device=cuda_device), block_n=4)
+    assert torch.equal(out.cpu(), torch.zeros(3, 4, 2))
+    rng = np.random.default_rng(ME)
+    for n_valid in (0, 1, 255, 256, 257, 511, 512, 513, 525, 526, 1023,
+                    1024, 1025, 2048, ME - 1, ME):
+        if n_valid > ME:
+            continue
+        ids = np.full((2, ME), -1, np.int32)
+        ids[0, :n_valid] = np.sort(rng.integers(0, 64, n_valid))
+        ids[1, :ME - n_valid] = np.sort(rng.integers(0, 64, ME - n_valid))
+        data = rng.standard_normal((2, ME, 1)).astype(np.float32)
+        got = segment_sum_bucketed(torch.from_numpy(data).to(cuda_device),
+                                   torch.from_numpy(ids).to(cuda_device),
+                                   block_n=64).cpu()
+        ref = segment_sum_bucketed(torch.from_numpy(data),
+                                   torch.from_numpy(ids), block_n=64)
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 

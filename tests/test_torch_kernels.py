@@ -28,7 +28,8 @@ from repro.kernels.delta_apply.delta_apply import delta_apply_chain_pallas
 from repro_torch.core import bitmaps as tbm
 from repro_torch.kernels import (bucket_edges, delta_apply_chain,
                                  delta_apply_chain_batched, delta_apply_fused,
-                                 delta_apply_fused_batched, launch_counts,
+                                 delta_apply_fused_batched,
+                                 delta_apply_fused_pair, launch_counts,
                                  policy, segment_sum)
 from repro_torch.kernels.segment_sum import segment_sum_bucketed
 from repro_torch.runtime.staging import host_tensor as _t   # words as int32
@@ -198,6 +199,30 @@ def test_fused_matches_plain_chain_mask():
     _assert_fused_equal(out, ref)
 
 
+@pytest.mark.parametrize("K", [0, 1, 5])
+@pytest.mark.parametrize("weighted,emit_live", [(True, True), (False, True),
+                                                (True, False)])
+def test_fused_pair(K, weighted, emit_live):
+    """One pair call lands a node plane (with weights) and an edge plane of
+    another width exactly as two JAX fused calls do, XLA and Pallas."""
+    rng = np.random.default_rng(10 * K + weighted)
+    node = _rand_chain(rng, 300, K, weighted)
+    edge = _rand_chain(rng, 129, K, False)
+    wn = None if node[3] is None else torch.from_numpy(node[3])
+    got = delta_apply_fused_pair(*(_t(a) for a in node[:3]),
+                                 *(_t(a) for a in edge[:3]), wn,
+                                 block_w=128, emit_live=emit_live)
+    assert len(got) == 2
+    for out, (base, adds, dels, w) in zip(got, (node, edge)):
+        for impl, interp in JAX_IMPLS:
+            ref = j_fused(jnp.asarray(base), jnp.asarray(adds),
+                          jnp.asarray(dels),
+                          None if w is None else jnp.asarray(w), impl=impl,
+                          block_w=128, interpret=interp,
+                          emit_live=emit_live)
+            _assert_fused_equal(out, ref, impl)
+
+
 def test_fused_batched_parity():
     rng = np.random.default_rng(5)
     bases, adds, dels, w = _rand_chain(rng, 200, 4, True, B=3)
@@ -238,6 +263,44 @@ def test_segment_sum_sweep(E, N, D, bn, data_kind):
             assert np.array_equal(got, ref), impl
         else:
             assert_allclose(got, ref, rtol=1e-5, atol=1e-5, err_msg=impl)
+
+
+def _layout_ids(layout: str, bn: int, rng) -> tuple[np.ndarray, int]:
+    """Segment ids for the bucket layouts the kernel handles apart: a
+    bucket of only padding (the middle one of three), empty rows between
+    filled ones, and one hub row holding most of a bucket's entries."""
+    if layout == "padding_bucket":
+        ids = rng.integers(0, 2 * bn, 6 * bn)
+        return np.where(ids >= bn, ids + bn, ids), 3 * bn
+    if layout == "gaps":
+        return 3 * rng.integers(0, bn, 4 * bn), 3 * bn + 1
+    ids = rng.integers(0, 2 * bn, 40 * bn)
+    ids[rng.random(ids.size) < 0.85] = bn // 2 + 1
+    return ids, 2 * bn
+
+
+@pytest.mark.parametrize("layout", ["padding_bucket", "gaps", "hub"])
+@pytest.mark.parametrize("D,bn", [(1, 16), (4, 8), (3, 128)])
+@pytest.mark.parametrize("data_kind", ["f32", "binary"])
+def test_segment_sum_layouts(layout, D, bn, data_kind):
+    rng = np.random.default_rng(len(layout) * bn + D)
+    ids, N = _layout_ids(layout, bn, rng)
+    E = ids.size
+    if data_kind == "f32":
+        data = rng.standard_normal((E, D)).astype(np.float32)
+    else:
+        data = (rng.random((E, D)) < 0.5).astype(np.float32)
+    got = segment_sum(torch.from_numpy(data), ids, N, block_n=bn).numpy()
+    for impl in ("xla", "pallas"):
+        ref = np.asarray(j_segment_sum(jnp.asarray(data), ids, N, impl=impl,
+                                       block_n=bn))
+        if data_kind == "binary":
+            assert np.array_equal(got, ref), impl
+        else:
+            assert_allclose(got, ref, rtol=1e-5, atol=1e-5, err_msg=impl)
+    want = np.zeros((N, D), np.float32)
+    np.add.at(want, ids, data)          # input order, as the kernel adds
+    assert np.array_equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("E,N,D,bn", [(100, 37, 8, 16), (1000, 200, 1, 128)])
@@ -293,3 +356,7 @@ def test_dispatch_by_device_only(monkeypatch):
     with pytest.raises(ValueError):
         segment_sum_bucketed(torch.zeros(1, 2, 1, device="meta"),
                              torch.zeros(1, 2, dtype=torch.int32), block_n=4)
+    with pytest.raises(ValueError):
+        delta_apply_fused_pair(m, m[None], m[None], x, x[None], x[None])
+    with pytest.raises(ValueError):
+        policy.use_kernel(None)
