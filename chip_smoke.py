@@ -11,14 +11,32 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    chain and segment-sum kernels;
 2. retrieval path: a ``growing_network(2_000_000)`` history (the
    generator's analogue of the paper's Dataset 1) indexed by a
-   ``DeltaGraph``; 64 timepoints retrieved by
+   ``GraphManager`` (``L=50_000, k=4, diff_fn="intersection"``, no snapshot
+   cache, ``device="cuda"``) whose ``DeltaGraph`` serves this phase and the
+   next; 64 timepoints retrieved by
    ``execute_multipoint_torch(land_in_pool=True)`` and 8 by
    ``execute_singlepoint_fused`` with ``degrees()``, checked against the
    ``replay`` oracle.  Launch counts are zeroed just before and read just
    after: each of the path's three kernels must have run, the fused
    kernel once per fused retrieval (``delta_apply_fused_pair``: node and
    edge planes in one launch) and segment-sum twice per ``degrees()``;
-3. retrieval kernels: each against its plain PyTorch version on the card,
+3. evolve path, on the same manager: ``dense_intervals(tmax, 8, 32,
+   window_frac=0.05)`` (``serve --mode evolve``'s default workload);
+   ``GraphManager.evolve`` for masks, degree, PageRank
+   (tol 1e-6) and components, incrementally at every point and by the
+   recompute engine at every 4th; ``evolve_intervals_torch`` over the
+   8 intervals at once; one ``SnapshotBatchLoader`` window (8 points, a label
+   horizon).  Checks, at every 4th point: masks equal ``replay``, degrees
+   a ``bincount`` of its live edges, components of both engines equal
+   and equal to scipy's partition of the replayed snapshot, PageRank of
+   the two engines within L1 5e-5 and max 1e-5; the interval sweep's masks
+   equal the incremental engine's at every point; the loader's edge and
+   label masks, edge counts and raw degrees equal replay's at every point
+   of its window.  Launch counts zeroed before and read after each
+   sub-phase: the sweep launches the chain kernel; the loader launches the
+   fused kernel once per degree pass (two a window: the window and its
+   horizon) and segment-sum twice per timepoint of each pass;
+4. retrieval kernels: each against its plain PyTorch version on the card,
    at full width (chain W = 2^21 words, K = 16, B = 8; fused W = 2^21,
    K = 16 with weights, ``live`` on and off; segment-sum on the degree
    feeds by source and by destination node, the second with hub buckets)
@@ -30,10 +48,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    calls replayed between CUDA events, beside the same calls in a host
    loop (``host_loop_ms``: adds the wrapper's host work); plain and bound
    times;
-4. churn: a ``churn_network`` history with deletes and transient slots,
+5. churn: a ``churn_network`` history with deletes and transient slots,
    monolithic and streamed (``DeviceStager``) retrieval and fused
-   analytics against ``replay``;
-5. LM serving: gemma3-1b at full width and depth (26 layers, d 1152,
+   analytics, and ``evolve_intervals_torch`` (monolithic and streamed) and
+   a ``SnapshotBatchLoader`` window, against ``replay``;
+6. LM serving: gemma3-1b at full width and depth (26 layers, d 1152,
    vocab 262,144, bf16, seeded random weights) through
    ``repro_torch.launch.serve.serve_lm``: batch 8, a 4,096-token prompt,
    32 greedy decode steps (the repo's ``prefill_32k`` / ``decode_32k``
@@ -62,7 +81,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    work bounds at decode); at the prefill shapes also the old prefill
    kernel (``attention_mma_kernel``, through ``ops._attention_mma``) in
    the same run, and its error; plain and bound times; prefill ms, decode
-   ms per step and tokens per second.
+   ms per step and tokens per second.  Last, ``flash_attention.cu`` at
+   the shapes it serves, against its plain version and SDPA:
+   ``attention_mma_kernel`` at stablelm-12b's prefill (bf16, q [1, 32,
+   4096, 160], k/v [1, 8, 4096, 160], causal) and
+   ``attention_simt_kernel`` at gemma3-1b's global prefill in f32.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -98,6 +121,12 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TAIL = "gemma3-1b", 8, 4096, 32, 16
 # depth of 6 layers (five local, one global); at full depth, the kernel's
 # bf16 drift against the plain version's on the same prompt
 LM_CUT_LAYERS, DRIFT_OVER_PLAIN = 6, 1.5
+# evolve path: serve --mode evolve's default workload, 8 intervals of 32
+# points over 5 % of the history each; the recompute engine and the checks
+# run at every 4th point.  One loader window of 8 points: its host
+# bucket_edges (twice per timepoint and pass, about 0.2 s a call at this
+# edge count) makes windows the costliest part of the phase.
+EVOLVE_INTERVALS, EVOLVE_POINTS, CHECK_EVERY, LOADER_BATCH = 8, 32, 4, 8
 
 
 def fail(msg: str) -> None:
@@ -222,6 +251,279 @@ def print_ptxas(log: str, kernel: str) -> None:
         elif name and ("spill" in line or "registers" in line):
             print(f"ptxas {name}: "
                   f"{line.strip().removeprefix('ptxas info    : ')}")
+
+
+def live_degrees(uni, edge_mask):
+    """Degrees (both endpoints of each live edge) by ``bincount``."""
+    import numpy as np
+    live = np.nonzero(edge_mask)[0]
+    N = uni.num_nodes
+    return (np.bincount(uni.edge_src[live], minlength=N)
+            + np.bincount(uni.edge_dst[live], minlength=N))
+
+
+def scipy_components(uni, state):
+    """Labels as the HashMin fixpoint gives them (each live node's smallest
+    live node id in its component, int32 max for dead nodes), from scipy's
+    connected components of the live subgraph."""
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    N = uni.num_nodes
+    nm = state.node_mask
+    e = np.nonzero(state.edge_mask)[0]
+    s, d = uni.edge_src[e], uni.edge_dst[e]
+    keep = nm[s] & nm[d]
+    graph = coo_matrix((np.ones(int(keep.sum()), np.int8),
+                        (s[keep], d[keep])), shape=(N, N))
+    n_comp, lab = connected_components(graph, directed=False)
+    live = np.nonzero(nm)[0]
+    first = np.full(n_comp, N, np.int64)
+    np.minimum.at(first, lab[live], live)
+    return np.where(nm, first[lab], np.iinfo(np.int32).max)
+
+
+def loader_window(gm, ev, times, horizon, dev, label):
+    """One ``SnapshotBatchLoader`` window at ``times``, checked against
+    ``replay``; returns its launch counts, wall seconds and the host
+    ``bucket_edges`` seconds inside it."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import SnapshotBatchLoader, replay
+
+    ss_ops = importlib.import_module("repro_torch.kernels.segment_sum.ops")
+    uni = gm.universe
+    N, E = uni.num_nodes, uni.num_edges
+    bucket = ss_ops.bucket_edges
+    spent = []
+
+    def timed_bucket(*args, **kw):
+        t0 = time.perf_counter()
+        out = bucket(*args, **kw)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    loader = SnapshotBatchLoader(gm, times, batch_size=len(times),
+                                 label_horizon=horizon)
+    ss_ops.bucket_edges = timed_bucket
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        (batch,) = list(loader)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        ss_ops.bucket_edges = bucket
+    T = len(times)
+    check(launches["delta_apply_fused"] == 2, f"{label}: loader launched the "
+          f"fused kernel {launches['delta_apply_fused']} times for one "
+          f"window and its horizon")
+    check(launches["segment_sum_bucketed"] == 2 * 2 * T, f"{label}: loader "
+          f"launched segment-sum {launches['segment_sum_bucketed']} times "
+          f"for 2 degree passes of {T} points")
+    check(all(v.device.type == dev.type for k, v in batch.items()
+              if k != "times"), f"{label}: batch tensors off the device")
+    check(batch["x"].shape == (T, N, 16) and batch["edge_mask"].shape ==
+          (T, 2 * E) and batch["labels"].shape == (T, N), f"{label}: shapes")
+    em = batch["edge_mask"].cpu().numpy()
+    lm = batch["label_mask"].cpu().numpy()
+    x = batch["x"][..., -1].cpu().numpy()
+    ne = batch["num_edges"].cpu().numpy()
+    labels = batch["labels"].cpu().numpy()
+    for j, t in enumerate(times):
+        truth = replay(uni, ev, t)
+        deg = live_degrees(uni, truth.edge_mask)
+        check(np.array_equal(em[j, :E] > 0, truth.edge_mask) and
+              np.array_equal(em[j, E:] > 0, truth.edge_mask),
+              f"{label}: loader edge_mask t={t}")
+        check(np.array_equal(lm[j] > 0, truth.node_mask),
+              f"{label}: loader label_mask t={t}")
+        check(int(ne[j]) == int(truth.edge_mask.sum()),
+              f"{label}: loader num_edges t={t}")
+        check(np.array_equal(x[j], deg.astype(np.float32)),
+              f"{label}: loader degrees t={t}")
+        fut = live_degrees(uni, replay(uni, ev, t + horizon).edge_mask)
+        check(np.array_equal(labels[j], (fut > deg).astype(np.int32)),
+              f"{label}: loader labels t={t}")
+    return {"launches": launches, "wall_s": wall,
+            "bucket_edges_s": sum(spent), "bucket_edges_calls": len(spent)}
+
+
+def evolve_phase(gm, ev, dev) -> dict:
+    """The evolve path on the main history (phase 3); returns the evolve
+    launches of the retrieval kernels, by kernel name."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import replay
+    from repro_torch.data.generators import dense_intervals
+    from repro_torch.runtime import torch_exec
+
+    t_phase = time.perf_counter()
+    uni = gm.universe
+    tmax = int(ev.time[-1])
+    ivs = dense_intervals(tmax, EVOLVE_INTERVALS, EVOLVE_POINTS,
+                          window_frac=0.05, seed=SEED)
+    ops = (("masks", {}), ("degree", {}), ("pagerank", {"tol": 1e-6}),
+           ("components", {}))
+    inc, rec, secs, iters = {}, {}, {}, {}
+    for name, kw in ops:
+        for incremental in (True, False):
+            if not incremental and name not in ("pagerank", "components"):
+                continue
+            engine = "incremental" if incremental else "recompute"
+            pts = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b, iv in enumerate(ivs):
+                times = iv if incremental else iv[::CHECK_EVERY]
+                res = gm.evolve(times, name, incremental=incremental, **kw)
+                (inc if incremental else rec)[name, b] = res
+                pts += len(times)
+                iters.setdefault((name, engine), []).extend(
+                    res.stats["solver_iters"] or [])
+            torch.cuda.synchronize()
+            secs[name, engine] = (time.perf_counter() - t0) / pts
+    pr_l1 = pr_max = 0.0
+    n_checked = 0
+    t0 = time.perf_counter()
+    for b, iv in enumerate(ivs):
+        for j, t in enumerate(iv):
+            if j % CHECK_EVERY:
+                continue
+            truth = replay(uni, ev, t)
+            nm, em = inc["masks", b].values[j]
+            check(np.array_equal(nm, truth.node_mask) and
+                  np.array_equal(em, truth.edge_mask),
+                  f"evolve masks differ from replay at t={t}")
+            check(np.array_equal(inc["degree", b].values[j],
+                                 live_degrees(uni, truth.edge_mask)),
+                  f"evolve degrees differ from bincount at t={t}")
+            c_inc = inc["components", b].values[j]
+            c_rec = rec["components", b].values[j // CHECK_EVERY]
+            check(np.array_equal(c_inc, c_rec), f"components: incremental "
+                  f"and recompute engines differ at t={t}")
+            check(np.array_equal(c_inc, scipy_components(uni, truth)),
+                  f"components differ from scipy's partition at t={t}")
+            d = np.abs(inc["pagerank", b].values[j].astype(np.float64)
+                       - rec["pagerank", b].values[j // CHECK_EVERY])
+            pr_l1, pr_max = max(pr_l1, float(d.sum())), max(pr_max,
+                                                            float(d.max()))
+            n_checked += 1
+    check(pr_l1 <= 5e-5 and pr_max <= 1e-5, f"PageRank: incremental and "
+          f"recompute engines differ by L1 {pr_l1}, max {pr_max}")
+    for (name, engine), s in secs.items():
+        it = iters.get((name, engine))
+        print(f"evolve: {name} {engine} {s:.6f} s/point" + (
+            f", solver iterations {sum(it)} over {len(it)} points (first "
+            f"{it[0]}, min {min(it)}, max {max(it)})" if it else ""))
+    print(f"evolve: {n_checked} checked points: masks = replay, degrees = "
+          f"bincount, components = recompute = scipy; PageRank incremental "
+          f"vs recompute L1 {pr_l1:.6e} (limit 5e-5), max {pr_max:.6e} "
+          f"(limit 1e-5); checks {time.perf_counter() - t0:.3f} s")
+
+    # the batched interval sweep, every interval at once
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    swept = torch_exec.evolve_intervals_torch(gm.dg, ivs, device=dev,
+                                              pool=gm.pool,
+                                              prefetch=gm.prefetcher)
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    sweep_launches = kernels.launch_counts()
+    check(sweep_launches["delta_apply_chain"] > 0,
+          "evolve_intervals_torch launched no chain kernel")
+    for b, iv in enumerate(ivs):
+        for j, t in enumerate(iv):
+            nm, em = inc["masks", b].values[j]
+            check(np.array_equal(swept[b][t][0], nm) and
+                  np.array_equal(swept[b][t][1], em),
+                  f"evolve_intervals_torch differs from the incremental "
+                  f"engine at t={t}")
+    print(f"evolve: evolve_intervals_torch over {len(ivs)} x "
+          f"{EVOLVE_POINTS} points {t_sweep:.6f} s "
+          f"({t_sweep / (len(ivs) * EVOLVE_POINTS):.6f} s/point), equal to "
+          f"the incremental engine at every point; launches "
+          f"{json.dumps(sweep_launches)}")
+
+    # one loader window with a label horizon of 4 interval steps
+    iv = ivs[0]
+    horizon = (iv[-1] - iv[0]) // (EVOLVE_POINTS - 1) * 4
+    lw = loader_window(gm, ev, iv[:LOADER_BATCH], horizon, dev, "evolve")
+    print(f"evolve: SnapshotBatchLoader window of {LOADER_BATCH} points, "
+          f"horizon {horizon}: {lw['wall_s']:.6f} s, of which host "
+          f"bucket_edges {lw['bucket_edges_s']:.6f} s in "
+          f"{lw['bucket_edges_calls']} calls; batch = replay; launches "
+          f"{json.dumps(lw['launches'])}; phase "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    return {name: {"evolve_intervals_torch": sweep_launches[name],
+                   "loader_window": lw["launches"][name]}
+            for name in RETRIEVAL_KERNELS}
+
+
+def served_shapes(rand, sdpa_call) -> list[dict]:
+    """``flash_attention.cu`` at the prefill shapes it serves (the rest go
+    to flash_prefill.cu and flash_decode.cu): ``attention_mma_kernel`` at
+    stablelm-12b's D = 160 in bf16, ``attention_simt_kernel`` at
+    gemma3-1b's global prefill in f32; each against its plain version and
+    SDPA, timed by CUDA-graph replay."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import attention, attention_ref
+
+    out = []
+    for label, kernel, dtype, (B, Hq, Hkv, Sq, Sk, D) in (
+            ("stablelm-12b prefill", "attention_mma_kernel", torch.bfloat16,
+             (1, 32, 8, 4096, 4096, 160)),
+            ("gemma3-1b global prefill, f32", "attention_simt_kernel",
+             torch.float32, (8, 4, 1, 4096, 4096 + LM_GEN, 256))):
+        q = rand((B, Hq, Sq, D), dtype)
+        k, v = rand((B, Hkv, Sk, D), dtype), rand((B, Hkv, Sk, D), dtype)
+        n0 = kernels.launch_counts()
+        got = attention(q, k, v)
+        n1 = kernels.launch_counts()
+        moved = {n for n in n1 if n1[n] != n0[n]}
+        check(moved == {"flash_attention"}, f"{label} ran {sorted(moved)}, "
+              f"not flash_attention.cu alone")
+        want = attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = max_abs_err(got.float(), want.float())
+        bf16 = dtype == torch.bfloat16
+        ratio = over_bf16_limit(got, want) if bf16 else None
+        check(err <= (2e-2 if bf16 else 3e-5) and (ratio or 0) <= 1.0,
+              f"{kernel} differs from plain at {label}: {err}, {ratio}")
+        del got, want
+        lib = sdpa_call(q, k, v, None, 0)
+        lib_err = max_abs_err(lib().float(), attention_ref(q, k, v).float())
+        ms = graph_ms(lambda: attention(q, k, v), 2)
+        plain = cuda_ms(lambda: attention_ref(q, k, v), 2, warmup=1)
+        lib_ms = graph_ms(lib, 2)
+        pairs, lo, hi = visible_span(Sq, Sk, None, 0)
+        esize = q.element_size()
+        nbytes = esize * (B * Hq * Sq * 2 * D + B * Hkv * (hi - lo) * 2 * D)
+        b, by = bound_ms(nbytes, 2.0 * B * Hq * pairs * 2 * D,
+                         BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        rec = {"shape": f"{label}: q {[B, Hq, Sq, D]} k/v {[B, Hkv, Sk, D]} "
+                        f"causal {str(dtype).split('.')[-1]}",
+               "kernel": f"flash_attention.cu: {kernel}", "ms": ms,
+               "plain_ms": plain, "bound_ms": b, "bound_by": by,
+               "library_ms": lib_ms, "library_max_abs_err": lib_err,
+               "max_abs_err": err, "err_over_bf16_limit": ratio,
+               "over_library": ms / lib_ms}
+        print(f"flash_attention.cu at {json.dumps(rec)}")
+        out.append(rec)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_phase(dev) -> list[dict]:
@@ -475,6 +777,8 @@ def lm_phase(dev) -> list[dict]:
               f"f32 at {label}: {err32[label]}")
         del q, k, v
 
+    served = served_shapes(rand, sdpa_call)
+
     by_label = {s["shape"].split(":")[0]: s for s in shapes}
     kern_prefill = sum(by_label[f"{w} prefill"]["ms"] * by_label[
         f"{w} prefill"]["launches"] for w in ("local", "global"))
@@ -520,6 +824,7 @@ def lm_phase(dev) -> list[dict]:
                f"f32_{top_label.replace(' ', '_')}_max_abs_err":
                    err32[top_label]}
         if old:
+            rec["served_shapes"] = served
             rec["launches_note"] = (
                 f"every attention() call on the path; {n_pre} of them ran "
                 f"flash_prefill.cu, {n_dec} flash_decode.cu and "
@@ -562,7 +867,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import kernels
-    from repro_torch.core import DeltaGraph, GraphPool, replay
+    from repro_torch.core import GraphManager, GraphPool, replay
     from repro_torch.data.generators import churn_network, growing_network
     from repro_torch.kernels import _build
     from repro_torch.kernels.delta_apply.ref import (delta_apply_chain_ref,
@@ -599,13 +904,14 @@ def main() -> int:
                               attrs_on_add=False)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dg = DeltaGraph(uni, MemKV(), L=50_000, k=4,
-                    diff_fn="intersection").build(ev)
+    gm = GraphManager(uni, ev, store=MemKV(), L=50_000, k=4,
+                      diff_fn="intersection", cache_bytes=0, device=dev)
+    dg = gm.dg
     t_index = time.perf_counter() - t0
     N, E = uni.num_nodes, uni.num_edges
     print(f"history: {len(ev)} events, {N} nodes, {E} edges, "
           f"{len(dg.leaf_nids)} leaves; generate {t_gen:.3f} s, "
-          f"index {t_index:.3f} s")
+          f"GraphManager (index, current graph, rates) {t_index:.3f} s")
     tmax = int(ev.time[-1])
     rng = np.random.default_rng(SEED)
     times = sorted({int(t) for t in np.linspace(0, tmax, 64)})
@@ -690,6 +996,9 @@ def main() -> int:
             f"weighted total t={t}")
     print("main path: masks, counts and degrees agree with replay")
 
+    # ----------------------------------------------------------- evolve path
+    evolve_launches = evolve_phase(gm, ev, dev)
+
     # --------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -702,7 +1011,7 @@ def main() -> int:
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b, "bound_by": by, "library_ms": library_ms,
-               **extra}
+               "evolve_path_launches": evolve_launches[name], **extra}
         print(f"kernel {name}: {json.dumps(rec)}")
         return rec
 
@@ -878,9 +1187,12 @@ def main() -> int:
     # ------------------------------------------------------------------ churn
     t0 = time.perf_counter()
     cuni, cev = churn_network(n_initial_edges=2000, n_events=50_000, seed=1)
-    cdg = DeltaGraph(cuni, MemKV(), L=2_000, k=2).build(cev)
+    cgm = GraphManager(cuni, cev, store=MemKV(), L=2_000, k=2,
+                       cache_bytes=0, device=dev)
+    cdg = cgm.dg
     ctmax = int(cev.time[-1])
     ctimes = sorted({int(t) for t in np.linspace(0, ctmax + 3, 16)})
+    ctruth = {t: replay(cuni, cev, t) for t in ctimes}
     cpool = GraphPool(cuni)
     cgids = torch_exec.execute_multipoint_torch(cdg, ctimes, pool=cpool,
                                                 land_in_pool=True)
@@ -893,7 +1205,7 @@ def main() -> int:
     check(any(k == "apply" for k, _ in stager.events),
           "streamed path did not engage the stager")
     for t in ctimes:
-        truth = replay(cuni, cev, t)
+        truth = ctruth[t]
         for nm, em in (mono[t], streamed[t],
                        (cpool.get_node_mask(cgids[t]),
                         cpool.get_edge_mask(cgids[t]))):
@@ -901,7 +1213,7 @@ def main() -> int:
             check(np.array_equal(em, truth.edge_mask), f"churn edges t={t}")
     for t in ctimes[::4]:
         nm, em, an = torch_exec.execute_singlepoint_fused(cdg, t)
-        truth = replay(cuni, cev, t)
+        truth = ctruth[t]
         check(np.array_equal(em, truth.edge_mask), f"churn fused t={t}")
         check(an.num_edges() == int(truth.edge_mask.sum()), f"churn t={t}")
         ref = np.zeros(cuni.num_nodes, np.float32)
@@ -909,11 +1221,35 @@ def main() -> int:
         np.add.at(ref, cuni.edge_src[live_e], 1)
         np.add.at(ref, cuni.edge_dst[live_e], 1)
         check(np.array_equal(an.degrees(), ref), f"churn degrees t={t}")
+    # the evolve path over deletes and transient slots: two overlapping
+    # intervals swept monolithic and streamed, and one loader window
+    civs = [ctimes[:12], ctimes[5:]]
+    for chunk in ("0", "2"):
+        os.environ["REPRO_STREAM_CHUNK"] = chunk
+        kernels.reset_launch_counts()
+        swept = torch_exec.evolve_intervals_torch(cdg, civs, device=dev,
+                                                  pool=cpool)
+        check(kernels.launch_counts()["delta_apply_chain"] > 0,
+              f"churn: evolve_intervals_torch (chunk {chunk}) launched no "
+              f"chain kernel")
+        for out, iv in zip(swept, civs):
+            for t in iv:
+                check(np.array_equal(out[t][0], ctruth[t].node_mask) and
+                      np.array_equal(out[t][1], ctruth[t].edge_mask),
+                      f"churn: evolve_intervals_torch (chunk {chunk}) "
+                      f"differs from replay at t={t}")
+    del os.environ["REPRO_STREAM_CHUNK"]
+    clw = loader_window(cgm, cev, ctimes[2:10], ctimes[3] - ctimes[2], dev,
+                        "churn")
+    cgm.close()
     torch.cuda.synchronize()
     print(f"churn: {len(cev)} events, {int(cuni.edge_transient.sum())} "
           f"transient edge slots, 16 timepoints monolithic, streamed and "
-          f"pooled + fused at 4 agree with replay "
+          f"pooled + fused at 4, evolve_intervals_torch (monolithic and "
+          f"streamed) and a loader window (launches "
+          f"{json.dumps(clw['launches'])}) agree with replay "
           f"({time.perf_counter() - t0:.3f} s)")
+    gm.close()
 
     # ------------------------------------------------------------ LM serving
     record.extend(lm_phase(dev))

@@ -103,10 +103,11 @@ def from_indices(idx: torch.Tensor, universe_size: int) -> torch.Tensor:
 
 
 def unpack(words: torch.Tensor, universe_size: int) -> torch.Tensor:
-    W = words.shape[0]
+    """``[..., W]`` words -> ``[..., U]`` bool (leading axes kept)."""
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    bits = (words[:, None] >> shifts[None, :]) & 1
-    return bits.reshape(W * 32)[:universe_size].to(torch.bool)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :universe_size].to(
+        torch.bool)
 
 
 def pack(mask: torch.Tensor) -> torch.Tensor:

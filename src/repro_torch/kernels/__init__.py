@@ -11,7 +11,9 @@ the kernels (:mod:`repro_torch.kernels.policy`).
 """
 from . import policy  # noqa: F401
 from .delta_apply import (FusedOut, delta_apply_chain,  # noqa: F401
-                          delta_apply_chain_batched, delta_apply_fused,
+                          delta_apply_chain_batched,
+                          delta_apply_chain_prefix,
+                          delta_apply_chain_prefix_batched, delta_apply_fused,
                           delta_apply_fused_batched, delta_apply_fused_pair)
 from .delta_apply import launches as _da_launches
 from .flash_attention import attention  # noqa: F401

@@ -35,13 +35,18 @@
 //   by shuffle and lane-strided output columns, up to Dv = 256 in
 //   registers.
 //
-// Bound.  Prefill is bound by operations (the bf16 tensor rate at these
-// widths).  This kernel does not reach it: mma.sync runs below the wgmma
-// rate and p·v costs three products; the measured gap is in PERF.md, and
-// wgmma with TMA loads is later work.  Calls with few query rows per KV
-// head (decode: (Hq / Hkv)·Sq <= 8), which are bound by bytes, go to the
-// split-K kernel of flash_decode.cu instead (ops.decode_shape); f32 calls
-// with up to 4 rows that exceed that still run attention_simt_kernel<1>.
+// Which calls come here (ops.py routes by shape).  Calls with few query
+// rows per KV head (decode: (Hq / Hkv)·Sq <= 8), which are bound by bytes,
+// go to the split-K kernel of flash_decode.cu (ops.decode_shape); bf16
+// prefill with D and Dv multiples of 64 up to 256 goes to the wgmma/TMA
+// kernel of flash_prefill.cu (ops.prefill_shape).  This file serves the
+// rest: f32 prefill (attention_simt_kernel; f32 calls with up to 4 rows
+// past the decode limit run attention_simt_kernel<1>), and bf16 prefill at
+// other head dims, such as stablelm-12b's D = 160, and at narrow widths
+// (attention_mma_kernel).  Prefill is bound by operations; mma.sync runs
+// below the wgmma rate and p·v costs three products here, so this kernel
+// stays below the bound; its times at the shapes it serves, beside the
+// bound and scaled_dot_product_attention's, are in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -98,6 +98,33 @@ def delta_apply_chain_batched(bases: torch.Tensor, adds: torch.Tensor,
     return _chain_kernel(bases, adds, dels)
 
 
+def delta_apply_chain_prefix(base: torch.Tensor, adds: torch.Tensor,
+                             dels: torch.Tensor) -> torch.Tensor:
+    """All K intermediate chain states ``[K, W]`` (``out[i]`` = state after
+    delta ``i``) of ``base [W]``, ``adds/dels [K, W]``."""
+    return delta_apply_chain_prefix_batched(base[None], adds[None],
+                                            dels[None])[0]
+
+
+def delta_apply_chain_prefix_batched(bases: torch.Tensor, adds: torch.Tensor,
+                                     dels: torch.Tensor) -> torch.Tensor:
+    """Prefix chains of B intervals: ``bases [B, W]``, ``adds/dels
+    [B, K, W]`` -> ``[B, K, W]``, every prefix one timepoint's bitmap.
+
+    The reference computes this with an XLA scan and no Pallas kernel
+    (each word is written once per step either way, so there is nothing to
+    fuse); here it is the same fold in plain PyTorch ops on the words'
+    device, three elementwise launches per step, writing each state
+    straight into its output row.  Bit-identical to the reference."""
+    _check_words(bases, adds, dels)
+    out = torch.empty_like(adds)
+    state = bases
+    for i in range(adds.shape[1]):
+        state = torch.bitwise_or(state & ~dels[:, i], adds[:, i],
+                                 out=out[:, i])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # fused chain + analytics
 # ---------------------------------------------------------------------------

@@ -1,16 +1,24 @@
-"""LM serving in the port: prefill a batch of prompts, then greedy decode.
+"""Serving in the port: LM prefill + greedy decode, and evolutionary
+queries.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode model \\
         --arch gemma3-1b --reduced --device cpu     # reduced width, host
     PYTHONPATH=src python -m repro_torch.launch.serve --mode model \\
         --arch gemma3-1b --batch 8 --prompt 4096 --gen 32   # full, card
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode evolve \\
+        --events 20000 --intervals 8 --points 32 --op pagerank   # card
 
-The counterpart of ``repro/launch/serve.py::serve_lm`` for the dense LM
-architectures (``--mode model``).  Weights are random, from a seeded
+``--mode model`` is the counterpart of ``repro/launch/serve.py::serve_lm``
+for the dense LM architectures.  Weights are random, from a seeded
 ``torch.Generator``; the prompt is ``numpy.random.default_rng(seed)``
 token ids.  The reference always runs the reduced config on its host;
-here ``reduced=True`` selects it, and the card runs the full width.  The
-retrieval serving modes of the reference come with a later slice.
+here ``reduced=True`` selects it, and the card runs the full width.
+
+``--mode evolve`` is the counterpart of ``serve_evolve``: dense
+evolutionary-query windows through the incremental temporal engine and
+the per-snapshot recompute loop, with the fixpoint operators on
+``--device``.  The snapshots, query, server and ingest modes of the
+reference come with a later slice.
 """
 from __future__ import annotations
 
@@ -98,6 +106,53 @@ def tail_drift(params, cfg, tokens: torch.Tensor, tail: int = 16
                         whole.abs().max())
 
 
+def serve_evolve(n_events: int, intervals: int, points: int, op: str, *,
+                 seed: int = 0, window_frac: float = 0.05,
+                 device="cuda") -> dict:
+    """Drive an evolutionary-query workload — ``intervals`` dense
+    ``points``-timepoint windows over a ``churn_network`` history —
+    through the incremental temporal engine and the per-snapshot
+    recompute loop on ``device``, print microseconds per point for each
+    and the speedup, and return ``{engine: (wall_s, solver_iters)}``."""
+    from ..core import GraphManager
+    from ..data.generators import churn_network, dense_intervals
+
+    dev = resolve_device(device)
+    uni, ev = churn_network(n_initial_edges=max(n_events // 12, 50),
+                            n_events=n_events, seed=seed)
+    tmax = int(ev.time[-1])
+    ivs = dense_intervals(tmax, intervals, points,
+                          window_frac=window_frac, seed=seed)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with GraphManager(uni, ev, L=max(n_events // 40, 64), k=2,
+                      diff_fn="intersection", cache_bytes=0,
+                      device=dev) as gm:
+        # warm both engines (first launches, lazily built kernels) so that
+        # one-time costs are not charged to whichever engine runs first
+        for engine_warm in (False, True):
+            gm.evolve(ivs[0][:3], op, incremental=engine_warm)
+        results = {}
+        for engine in ("recompute", "incremental"):
+            sync()
+            t0 = time.perf_counter()
+            iters = 0
+            for iv in ivs:
+                res = gm.evolve(iv, op,
+                                incremental=(engine == "incremental"))
+                if res.stats.get("solver_iters"):
+                    iters += sum(res.stats["solver_iters"])
+            sync()
+            results[engine] = (time.perf_counter() - t0, iters)
+    q = intervals * points
+    for engine, (wall, iters) in results.items():
+        print(f"{engine:12s}: {wall / q * 1e6:8.1f} us/point "
+              f"({q / wall:8.0f} points/s, solver iters {iters})")
+    print(f"speedup x{results['recompute'][0] / results['incremental'][0]:.2f}"
+          f"  ({intervals} intervals x {points} points, op={op}, "
+          f"device {dev})")
+    return results
+
+
 def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, *,
              reduced: bool = False, device="cuda", seed: int = 0) -> dict:
     """Serve one batch: ``batch`` prompts of ``prompt_len`` tokens, ``gen``
@@ -118,9 +173,9 @@ def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, *,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=("model",), default="model",
-                    help="LM serving (the retrieval modes are not ported "
-                         "yet)")
+    ap.add_argument("--mode", choices=("model", "evolve"), default="model",
+                    help="LM serving, or evolutionary queries (the other "
+                         "retrieval modes are not ported yet)")
     ap.add_argument("--arch", default="gemma3-1b", choices=ARCH_IDS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=32)
@@ -130,9 +185,23 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--events", type=int, default=20_000,
+                    help="evolve mode: history length")
+    ap.add_argument("--intervals", type=int, default=8,
+                    help="evolve mode: number of evolutionary queries")
+    ap.add_argument("--points", type=int, default=32,
+                    help="evolve mode: timepoints per interval")
+    ap.add_argument("--op", default="pagerank",
+                    choices=("masks", "degree", "density", "pagerank",
+                             "components"),
+                    help="evolve mode: incremental operator")
     args = ap.parse_args()
-    serve_lm(args.arch, args.batch, args.prompt, args.gen,
-             reduced=args.reduced, device=args.device, seed=args.seed)
+    if args.mode == "evolve":
+        serve_evolve(args.events, args.intervals, args.points, args.op,
+                     seed=args.seed, device=args.device)
+    else:
+        serve_lm(args.arch, args.batch, args.prompt, args.gen,
+                 reduced=args.reduced, device=args.device, seed=args.seed)
 
 
 if __name__ == "__main__":

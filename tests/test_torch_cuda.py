@@ -13,7 +13,9 @@ rows without a key, strided inputs, the split-K decode kernel at the
 gemma3-1b decode shapes, the wgmma/TMA prefill kernel on ragged tiles,
 windows, chunked prefill, GQA groups, every head-dim instantiation and
 cache slices, the old prefill kernel (kept as a yardstick) at gemma3-1b
-widths, and a reduced LM on the card.
+widths, and a reduced LM on the card; for the temporal engine,
+``evolve_intervals_torch`` (monolithic and streamed), the batch loader
+and both fixpoint solvers on the card against the port's own CPU runs.
 This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -489,3 +491,112 @@ def test_cuda_lm_matches_cpu(cuda_device):
                                    tokens[:, i:i + 1].to(cuda_device), i, cfg)
     rel = (lg.cpu() - want[:, -1]).abs().max() / want[:, -1].abs().max()
     assert rel <= 1e-4, rel
+
+
+# ---------------------------------------------------------------------------
+# temporal engine on the card, against the port's CPU runs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def churn_managers():
+    """``(uni, ev, card manager, cpu manager)`` over one churn history."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from repro_torch.core import GraphManager
+    uni, ev = churn_network(n_initial_edges=150, n_events=1500, seed=2)
+    gm = GraphManager(uni, ev, L=100, k=2, cache_bytes=0)
+    cpu = GraphManager(uni, ev, L=100, k=2, cache_bytes=0, device="cpu")
+    yield uni, ev, gm, cpu
+    gm.close()
+    cpu.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", ["2", "0"])
+def test_cuda_evolve_intervals_matches_cpu(cuda_device, churn_managers,
+                                           monkeypatch, chunk):
+    uni, ev, gm, cpu = churn_managers
+    tmax = int(ev.time[-1])
+    ivs = [list(range(0, tmax + 2, tmax // 11)),
+           list(range(tmax // 3, tmax // 2, 5))]
+    monkeypatch.setenv("REPRO_STREAM_CHUNK", chunk)
+    n0 = launch_counts()["delta_apply_chain"]
+    got = torch_exec.evolve_intervals_torch(gm.dg, ivs, pool=gm.pool)
+    assert launch_counts()["delta_apply_chain"] > n0
+    want = torch_exec.evolve_intervals_torch(cpu.dg, ivs, device="cpu",
+                                             pool=cpu.pool)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        for t in g:
+            assert np.array_equal(g[t][0], w[t][0])
+            assert np.array_equal(g[t][1], w[t][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("horizon", [None, 3])
+def test_cuda_loader_matches_cpu(cuda_device, churn_managers, horizon):
+    from repro_torch.core import SnapshotBatchLoader
+    uni, ev, gm, cpu = churn_managers
+    tmax = int(ev.time[-1])
+    times = list(range(tmax // 4, tmax, tmax // 13))
+    got = SnapshotBatchLoader(gm, times, batch_size=4, label_horizon=horizon)
+    want = SnapshotBatchLoader(cpu, times, batch_size=4,
+                               label_horizon=horizon)
+    n0 = launch_counts()
+    batches = list(got)
+    n1 = launch_counts()
+    passes = len(batches) * (1 if horizon is None else 2)
+    assert n1["delta_apply_fused"] - n0["delta_apply_fused"] == passes
+    assert (n1["segment_sum_bucketed"] - n0["segment_sum_bucketed"]
+            == 2 * 4 * passes)
+    for b, w in zip(batches, want):
+        assert b["times"] == w["times"]
+        for key in w:
+            if key != "times":
+                assert b[key].is_cuda
+                assert torch.equal(b[key].cpu(), w[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["dense", "segment"])
+def test_cuda_fixpoints_match_cpu(cuda_device, churn_managers, impl):
+    """PageRank within 1e-6 of the CPU run (float atomics reorder the
+    sums; iterations within 2), components exactly."""
+    from repro_torch.core import bitmaps as bm
+    from repro_torch.graph.algorithms import (connected_components_fixpoint,
+                                              pagerank_fixpoint)
+    uni, ev, gm, cpu = churn_managers
+    st = cpu.get_snapshot(int(ev.time[1000]))
+    planes = (bm.np_pack(st.edge_mask), bm.np_pack(st.node_mask))
+    pr0 = st.node_mask.astype(np.float32) / max(st.node_mask.sum(), 1)
+    kw = dict(num_nodes=uni.num_nodes, force_impl=impl, tol=1e-7)
+    got, it = pagerank_fixpoint(uni.edge_src, uni.edge_dst, *planes, pr0,
+                                **kw)
+    want, wit = pagerank_fixpoint(uni.edge_src, uni.edge_dst, *planes, pr0,
+                                  device="cpu", **kw)
+    assert np.allclose(got, want, atol=1e-6) and abs(it - wit) <= 2
+    labels0 = np.arange(uni.num_nodes, dtype=np.int32)
+    got, it = connected_components_fixpoint(
+        uni.edge_src, uni.edge_dst, *planes, labels0,
+        num_nodes=uni.num_nodes)
+    want, wit = connected_components_fixpoint(
+        uni.edge_src, uni.edge_dst, *planes, labels0,
+        num_nodes=uni.num_nodes, device="cpu")
+    assert np.array_equal(got, want) and it == wit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["pagerank", "components", "degree"])
+def test_cuda_evolve_ops_match_cpu(cuda_device, churn_managers, op):
+    uni, ev, gm, cpu = churn_managers
+    tmax = int(ev.time[-1])
+    times = [int(t) for t in np.linspace(tmax // 2, tmax, 9)]
+    for incremental in (True, False):
+        got = gm.evolve(times, op, incremental=incremental)
+        want = cpu.evolve(times, op, incremental=incremental)
+        for g, w in zip(got.values, want.values):
+            if op == "pagerank":
+                assert np.allclose(g, w, atol=1e-5)
+            else:
+                assert np.array_equal(g, w)
