@@ -7,8 +7,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 
 1. set-up: the card's name and power limit; every CUDA kernel built from
    ``src/repro_torch/kernels/csrc`` with one ``nvcc`` per source, all at
-   once, and ptxas's registers, spills and shared memory for the prefill,
-   chain and segment-sum kernels;
+   once, and ptxas's registers, spills and shared memory for the two
+   prefill kernels, the fused and the segment-sum kernels;
 2. retrieval path: a ``growing_network(2_000_000)`` history (the
    generator's analogue of the paper's Dataset 1) indexed by a
    ``GraphManager`` (``L=50_000, k=4, diff_fn="intersection"``, no snapshot
@@ -61,19 +61,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    wgmma/TMA prefill kernel (``flash_attention_prefill``: 26 per prefill
    forward) and every decode call through the split-K decode kernel
    (``flash_attention_decode``: 26 per decode step); prefill of
-   ``prompt[:, :-16]`` and
-   16 decode steps against the whole prompt's prefill (relative error of
-   the last logits): in bf16 within the reference's 5e-2 at the first 6
-   layers, and at full depth within 1.5 times the drift of the same run
-   with the plain attention in the kernel's place (at full depth bf16
-   drifts past 5e-2 whatever computes attention); in f32 at full depth
-   within 1e-3; a kernel that drops the last key tile must fail the bf16
-   check.  The kernel against its plain version at each attention shape
-   the path used (local and global prefill, local and global decode at
-   ``q_offset`` 4,100 against the ``max_len`` cache) in bf16 within 2e-2
-   and, element by element, two bf16 ulps plus 1e-5 (which the plain
-   version with the last key tile dropped must fail), and at the
-   global-prefill and global-decode shapes in f32 within 3e-5; each shape
+   ``prompt[:, :-16]`` and 16 decode steps against the whole prompt's
+   prefill (relative error of the last logits): in bf16 within the
+   reference's 5e-2 at the first 6 layers, and at full depth within 1.5
+   times the drift of the same run with the plain attention in the
+   kernel's place (at full depth bf16 drifts past 5e-2 whatever computes
+   attention); in f32 at full depth within 1e-3, the f32 path, whose
+   prefill calls go to the TF32 kernel (``flash_attention_prefill_f32``:
+   26 per prefill forward); a kernel that drops the last key tile must
+   fail the bf16 check.  The kernel against its plain version at each
+   attention shape the path used (local and global prefill, local and
+   global decode at ``q_offset`` 4,100 against the ``max_len`` cache) in
+   bf16 within 2e-2 and, element by element, two bf16 ulps plus 1e-5
+   (which the plain version with the last key tile dropped must fail),
+   and at each of these four shapes in f32 within 3e-5 (the two prefill
+   shapes through ``flash_prefill_f32.cu``, by launch count); each shape
    names the kernel that ran and its splits.  Kernel and
    ``scaled_dot_product_attention`` times (over the visible keys) are
    device times, a CUDA graph of repeated calls replayed between CUDA
@@ -81,11 +83,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    work bounds at decode); at the prefill shapes also the old prefill
    kernel (``attention_mma_kernel``, through ``ops._attention_mma``) in
    the same run, and its error; plain and bound times; prefill ms, decode
-   ms per step and tokens per second.  Last, ``flash_attention.cu`` at
-   the shapes it serves, against its plain version and SDPA:
-   ``attention_mma_kernel`` at stablelm-12b's prefill (bf16, q [1, 32,
-   4096, 160], k/v [1, 8, 4096, 160], causal) and
-   ``attention_simt_kernel`` at gemma3-1b's global prefill in f32.
+   ms per step and tokens per second.  Then the two shapes
+   ``flash_attention.cu`` served before its kernels were replaced, each
+   through its new kernel against the plain version, SDPA and the old
+   kernel in the same run: stablelm-12b's prefill (bf16, q [1, 32, 4096,
+   160], k/v [1, 8, 4096, 160], causal) through ``flash_prefill.cu`` at
+   (192, 192) against ``attention_mma_kernel``, and gemma3-1b's global
+   prefill in f32 through ``flash_prefill_f32.cu`` against
+   ``attention_simt_kernel``.  Last, stablelm-12b at full width and depth
+   (40 layers, d 5120, 32:8 heads of 160, bf16, seeded random weights,
+   about 24 GB; batch 1, a 4,096-token prompt, 16 decode steps): the
+   tail drift within 1.5 times the plain version's, the decode kernel
+   against its plain version at stablelm's decode shape (q [1, 32, 1,
+   160] on the ``max_len`` cache; 2e-2 and two ulps), then ``serve_lm``
+   timed, every prefill attention call through ``flash_prefill.cu`` (40
+   per forward) and none through ``flash_attention.cu``.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -104,6 +116,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12          # H100 SXM non-tensor 32-bit rate (data sheet)
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor rate (data sheet)
+TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 tensor rate (data sheet)
 SEED = 0
 # the attention kernel against its plain version in bf16, element by
 # element: both sum in f32 and round once to bf16, so they differ by at
@@ -121,6 +134,9 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TAIL = "gemma3-1b", 8, 4096, 32, 16
 # depth of 6 layers (five local, one global); at full depth, the kernel's
 # bf16 drift against the plain version's on the same prompt
 LM_CUT_LAYERS, DRIFT_OVER_PLAIN = 6, 1.5
+# stablelm-12b at full width and depth (40 layers, 32:8 heads of 160: the
+# bf16 prefill kernel's (192, 192) instantiation), batch 1, uncut
+ST_ARCH, ST_BATCH, ST_PROMPT, ST_GEN = "stablelm-12b", 1, 4096, 16
 # evolve path: serve --mode evolve's default workload, 8 intervals of 32
 # points over 5 % of the history each; the recompute engine and the checks
 # run at every 4th point.  One loader window of 8 points: its host
@@ -469,61 +485,209 @@ def evolve_phase(gm, ev, dev) -> dict:
             for name in RETRIEVAL_KERNELS}
 
 
-def served_shapes(rand, sdpa_call) -> list[dict]:
-    """``flash_attention.cu`` at the prefill shapes it serves (the rest go
-    to flash_prefill.cu and flash_decode.cu): ``attention_mma_kernel`` at
-    stablelm-12b's D = 160 in bf16, ``attention_simt_kernel`` at
-    gemma3-1b's global prefill in f32; each against its plain version and
-    SDPA, timed by CUDA-graph replay."""
+def served_shapes(rand, sdpa_call) -> dict[str, dict]:
+    """The two shapes ``flash_attention.cu`` served before its kernels were
+    replaced, through ``attention()`` and so through their new kernels:
+    stablelm-12b's bf16 prefill (D = 160) through ``flash_prefill.cu`` at
+    its (192, 192) instantiation, and gemma3-1b's global prefill in f32
+    through ``flash_prefill_f32.cu``.  Each against its plain version
+    (bf16: 2e-2 and two ulps; f32: 3e-5), SDPA, and the old kernel it
+    replaced on the same inputs (``ops._attention_mma``,
+    ``ops._attention_simt``), all timed by CUDA-graph replay in this run."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import attention, attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    out = []
-    for label, kernel, dtype, (B, Hq, Hkv, Sq, Sk, D) in (
-            ("stablelm-12b prefill", "attention_mma_kernel", torch.bfloat16,
-             (1, 32, 8, 4096, 4096, 160)),
-            ("gemma3-1b global prefill, f32", "attention_simt_kernel",
-             torch.float32, (8, 4, 1, 4096, 4096 + LM_GEN, 256))):
+    out = {}
+    for (label, counter, old_name, old_fn, dtype, (B, Hq, Hkv, Sq, Sk, D),
+         iters, old_iters) in (
+            ("stablelm-12b prefill", "flash_attention_prefill",
+             "attention_mma_kernel", fa_ops._attention_mma, torch.bfloat16,
+             (1, 32, 8, 4096, 4096, 160), 20, 4),
+            ("gemma3-1b global prefill, f32", "flash_attention_prefill_f32",
+             "attention_simt_kernel", fa_ops._attention_simt, torch.float32,
+             (8, 4, 1, 4096, 4096 + LM_GEN, 256), 4, 2)):
         q = rand((B, Hq, Sq, D), dtype)
         k, v = rand((B, Hkv, Sk, D), dtype), rand((B, Hkv, Sk, D), dtype)
         n0 = kernels.launch_counts()
         got = attention(q, k, v)
         n1 = kernels.launch_counts()
-        moved = {n for n in n1 if n1[n] != n0[n]}
-        check(moved == {"flash_attention"}, f"{label} ran {sorted(moved)}, "
-              f"not flash_attention.cu alone")
+        moved = {n: n1[n] - n0[n] for n in n1 if n1[n] != n0[n]}
+        check(moved == {"flash_attention": 1, counter: 1},
+              f"{label} ran {moved}, not {counter} alone")
         want = attention_ref(q, k, v)
+        old = old_fn(q, k, v)
         torch.cuda.synchronize()
-        err = max_abs_err(got.float(), want.float())
         bf16 = dtype == torch.bfloat16
-        ratio = over_bf16_limit(got, want) if bf16 else None
-        check(err <= (2e-2 if bf16 else 3e-5) and (ratio or 0) <= 1.0,
-              f"{kernel} differs from plain at {label}: {err}, {ratio}")
-        del got, want
+        errs = {}
+        for name, res in (("new", got), ("old", old)):
+            errs[name] = (max_abs_err(res.float(), want.float()),
+                          over_bf16_limit(res, want) if bf16 else None)
+            check(errs[name][0] <= (2e-2 if bf16 else 3e-5) and
+                  (errs[name][1] or 0) <= 1.0, f"{name} kernel differs from "
+                  f"plain at {label}: {errs[name]}")
+        del got, want, old
         lib = sdpa_call(q, k, v, None, 0)
         lib_err = max_abs_err(lib().float(), attention_ref(q, k, v).float())
-        ms = graph_ms(lambda: attention(q, k, v), 2)
+        ms = graph_ms(lambda: attention(q, k, v), iters)
+        old_ms = graph_ms(lambda: old_fn(q, k, v), old_iters)
         plain = cuda_ms(lambda: attention_ref(q, k, v), 2, warmup=1)
-        lib_ms = graph_ms(lib, 2)
+        lib_ms = graph_ms(lib, iters)
         pairs, lo, hi = visible_span(Sq, Sk, None, 0)
         esize = q.element_size()
         nbytes = esize * (B * Hq * Sq * 2 * D + B * Hkv * (hi - lo) * 2 * D)
-        b, by = bound_ms(nbytes, 2.0 * B * Hq * pairs * 2 * D,
-                         BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        ops = 2.0 * B * Hq * pairs * 2 * D
+        # the f32 kernel does its products three times over, on the TF32
+        # tensor cores: the rate its instructions run at
+        b, by = (bound_ms(nbytes, ops, BF16_OPS_PER_S) if bf16 else
+                 bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S))
         rec = {"shape": f"{label}: q {[B, Hq, Sq, D]} k/v {[B, Hkv, Sk, D]} "
                         f"causal {str(dtype).split('.')[-1]}",
-               "kernel": f"flash_attention.cu: {kernel}", "ms": ms,
-               "plain_ms": plain, "bound_ms": b, "bound_by": by,
+               "kernel": ("flash_prefill.cu: attention_prefill_kernel<192, "
+                          "192>" if bf16 else "flash_prefill_f32.cu: "
+                          "attention_prefill_f32_kernel<256, 256>"),
+               "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
                "library_ms": lib_ms, "library_max_abs_err": lib_err,
-               "max_abs_err": err, "err_over_bf16_limit": ratio,
-               "over_library": ms / lib_ms}
-        print(f"flash_attention.cu at {json.dumps(rec)}")
-        out.append(rec)
+               "max_abs_err": errs["new"][0],
+               "err_over_bf16_limit": errs["new"][1],
+               "over_library": ms / lib_ms, "old_kernel":
+                   f"flash_attention.cu: {old_name}", "old_ms": old_ms,
+               "old_max_abs_err": errs["old"][0],
+               "old_err_over_bf16_limit": errs["old"][1],
+               "speedup_over_old": old_ms / ms}
+        if bf16:    # the work the (192, 192) instantiation does
+            rec["padded_bound_ms"] = bound_ms(nbytes, ops * 192 / D,
+                                              BF16_OPS_PER_S)[0]
+        else:       # the work once, at the CUDA cores' f32 rate
+            rec["f32_rate_bound_ms"] = bound_ms(nbytes, ops)[0]
+        print(f"served shape: {json.dumps(rec)}")
+        out[counter] = rec
         del q, k, v
         torch.cuda.empty_cache()
     return out
+
+
+def stablelm_pass(dev) -> dict:
+    """stablelm-12b at full width and depth: the tail-drift check (kernel
+    against the plain version, which also warms the card for the prompt's
+    shapes), then ``serve_lm`` timed, with launch counts zeroed before and
+    read after each: every prefill attention call through
+    ``flash_prefill.cu`` (40 per forward), every decode call through
+    ``flash_decode.cu``, none anywhere else.  Last, both kernels against
+    the plain version at the shapes ``serve_lm`` gave them (2e-2 and two
+    bf16 ulps)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import attention, attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import model as tm
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = serve.load_lm(ST_ARCH, device=dev, seed=SEED)
+    L = cfg.n_layers
+    n_params = sum(w.numel() for v in params.values() for w in (
+        v.values() if isinstance(v, dict) else [v]))
+    print(f"LM: {ST_ARCH} at full width and depth ({L} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+          f"{n_params} parameters), random weights (seed {SEED}); batch "
+          f"{ST_BATCH}, prompt {ST_PROMPT}, {ST_GEN} greedy decode steps")
+    tokens = serve.prompt_tokens(cfg, ST_BATCH, ST_PROMPT, SEED, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _, rel = serve.tail_drift(params, cfg, tokens, LM_TAIL)
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()
+    want = {"flash_attention": L * (2 + LM_TAIL),
+            "flash_attention_prefill": 2 * L,
+            "flash_attention_decode": L * LM_TAIL}
+    check({k: v for k, v in n.items() if v} == want, f"{ST_ARCH} tail check "
+          f"launched {n}, not {want}")
+    orig = tm.attention
+    tm.attention = attention_ref
+    try:
+        _, rel_plain = serve.tail_drift(params, cfg, tokens, LM_TAIL)
+    finally:
+        tm.attention = orig
+    check(rel <= DRIFT_OVER_PLAIN * rel_plain, f"{ST_ARCH} bf16 tail drift "
+          f"{rel} through the kernels, {rel_plain} through the plain version")
+    del params
+    torch.cuda.empty_cache()
+
+    seen = []           # the shapes serve_lm hands the kernels
+
+    def rec_shape(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                     kw["window"], kw["q_offset"]))
+        return orig(q, k, v, **kw)
+
+    tm.attention = rec_shape
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        res = serve.serve_lm(ST_ARCH, ST_BATCH, ST_PROMPT, ST_GEN,
+                             device=dev, seed=SEED)
+        torch.cuda.synchronize()
+    finally:
+        tm.attention = orig
+    n = kernels.launch_counts()
+    want = {"flash_attention": L * (1 + ST_GEN),
+            "flash_attention_prefill": L,
+            "flash_attention_decode": L * ST_GEN}
+    check({k: v for k, v in n.items() if v} == want, f"{ST_ARCH} serve_lm "
+          f"launched {n}, not {want}: every prefill call through "
+          f"flash_prefill.cu and none through flash_attention.cu")
+    check(bool(torch.isfinite(res["prefill_logits"].float()).all()),
+          f"{ST_ARCH} prefill logits not finite")
+    check(res["tokens"].shape == (ST_BATCH, ST_GEN) and
+          ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all(),
+          f"{ST_ARCH} generated tokens out of range")
+    # each kernel against its plain version at the path's prefill shape and
+    # at a decode shape on the max_len cache, on seeded random inputs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    errs = {}
+    for label, counter, (qs, ks, vs, window, off) in (
+            ("prefill", "flash_attention_prefill",
+             next(s for s in seen if s[0][2] > 1)),
+            ("decode", "flash_attention_decode",
+             next(s for s in seen if s[0][2] == 1 and
+                  s[4] == ST_PROMPT + 4))):
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(cfg.dtype)
+                   for s in (qs, ks, vs))
+        kw = dict(causal=True, window=window, q_offset=off)
+        n0 = kernels.launch_counts()
+        got = attention(q, k, v, **kw)
+        n1 = kernels.launch_counts()
+        moved = {m: n1[m] - n0[m] for m in n1 if n1[m] != n0[m]}
+        check(moved == {"flash_attention": 1, counter: 1}, f"{ST_ARCH} "
+              f"{label} ran {moved}, not {counter} alone")
+        want = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        errs[label] = {"shape": f"q {list(qs)} k/v {list(ks)} q_offset {off}",
+                       "max_abs_err": max_abs_err(got.float(), want.float()),
+                       "err_over_bf16_limit": over_bf16_limit(got, want)}
+        check(errs[label]["max_abs_err"] <= 2e-2 and
+              errs[label]["err_over_bf16_limit"] <= 1.0, f"{ST_ARCH} {label} "
+              f"kernel differs from plain: {errs[label]}")
+        del q, k, v, got, want
+    rec = {"arch": ST_ARCH, "batch": ST_BATCH, "prompt": ST_PROMPT,
+           "decode_steps": ST_GEN, "layers": L,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms_per_step": res["decode_s"] / ST_GEN * 1e3,
+           "launches": n, "kernel_vs_plain": errs, "tail_rel_err_bf16": rel,
+           "tail_rel_err_bf16_plain_attention": rel_plain,
+           "peak_device_memory_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "phase_s": time.perf_counter() - t_phase}
+    del res
+    torch.cuda.empty_cache()
+    print(f"LM serving {ST_ARCH}: {json.dumps(rec)}")
+    return rec
 
 
 def lm_phase(dev) -> list[dict]:
@@ -580,6 +744,8 @@ def lm_phase(dev) -> list[dict]:
           f"forward of {L} layers")
     check(n_dec == L * LM_GEN, f"the decode kernel launched {n_dec} times "
           f"for {LM_GEN} decode steps of {L} layers")
+    check(launches["flash_attention_prefill_f32"] == 0, "the bf16 path "
+          "launched the f32 prefill kernel")
     prefill_ms = res["prefill_s"] * 1e3
     step_ms = res["decode_s"] / LM_GEN * 1e3
     tok_s = LM_BATCH * LM_GEN / res["decode_s"]
@@ -627,20 +793,29 @@ def lm_phase(dev) -> list[dict]:
                         for k, v in params.items()}, cut)
     check(rel_cut <= 5e-2, f"bf16 tail drift {rel_cut} at {LM_CUT_LAYERS} "
           f"layers")
-    _, rel32 = drift(serve.cast_params(params, torch.float32),
-                     dataclasses.replace(cfg, dtype=torch.float32))
+    # the bf16 checks: two prefill forwards and LM_TAIL decode steps each
+    n = kernels.launch_counts()
+    want = {"flash_attention": (2 * L + LM_CUT_LAYERS) * (2 + LM_TAIL),
+            "flash_attention_prefill": (2 * L + LM_CUT_LAYERS) * 2,
+            "flash_attention_decode": (2 * L + LM_CUT_LAYERS) * LM_TAIL}
+    check({k: v for k, v in n.items() if v} == want, f"the bf16 tail checks "
+          f"launched {n}, not {want}")
+    # the f32 path: the same check in f32, every prefill call through the
+    # TF32 kernel (L per prefill forward), none through flash_attention.cu
+    params32 = serve.cast_params(params, torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _, rel32 = drift(params32, dataclasses.replace(cfg, dtype=torch.float32))
+    torch.cuda.synchronize()
+    n32 = kernels.launch_counts()
     check(rel32 <= 1e-3, f"f32 tail drift {rel32}")
-    del direct
-    n_fa2 = kernels.launch_counts()["flash_attention"]
-    n_pre2 = kernels.launch_counts()["flash_attention_prefill"]
-    n_dec2 = kernels.launch_counts()["flash_attention_decode"]
-    check(n_fa2 == (3 * L + LM_CUT_LAYERS) * (2 + LM_TAIL),
-          f"flash_attention launched {n_fa2} times in the tail checks")
-    # two prefill forwards per check; the f32 one runs flash_attention.cu
-    check(n_pre2 == (2 * L + LM_CUT_LAYERS) * 2,
-          f"the prefill kernel launched {n_pre2} times in the tail checks")
-    check(n_dec2 == (3 * L + LM_CUT_LAYERS) * LM_TAIL,
-          f"the decode kernel launched {n_dec2} times in the tail checks")
+    want = {"flash_attention": L * (2 + LM_TAIL),
+            "flash_attention_prefill_f32": 2 * L,
+            "flash_attention_decode": L * LM_TAIL}
+    check({k: v for k, v in n32.items() if v} == want, f"the f32 tail check "
+          f"launched {n32}, not {want}")
+    n_pre32 = n32["flash_attention_prefill_f32"]
+    del direct, params32
     torch.cuda.empty_cache()
     print(f"LM serving: prefill {LM_BATCH}x{LM_PROMPT} {prefill_ms:.3f} ms; "
           f"decode {step_ms:.3f} ms/step ({tok_s:.1f} tok/s); "
@@ -651,7 +826,8 @@ def lm_phase(dev) -> list[dict]:
           f"vs whole-prompt prefill: relative error {rel:.6e} in bf16 "
           f"({rel_plain:.6e} through the plain version, {rel_wrong:.6e} "
           f"with the last key tile dropped), {rel_cut:.6e} in "
-          f"bf16 at {LM_CUT_LAYERS} layers, {rel32:.6e} in f32")
+          f"bf16 at {LM_CUT_LAYERS} layers, {rel32:.6e} in f32 ({n_pre32} "
+          f"launches of the f32 prefill kernel, {L} per prefill forward)")
 
     # the kernel against its plain version at each shape the path used
     def first(prefill, local, offset=None):
@@ -765,17 +941,25 @@ def lm_phase(dev) -> list[dict]:
             "library_host_loop_ms": lib_loop_ms,
             "library_max_abs_err": lib_err, **old})
         del q, k, v, got, want, wrong
-    # f32 at the global-prefill and global-decode shapes, held to 3e-5
+    # f32 at each of those shapes, the f32 path's, held to 3e-5: prefill
+    # through the TF32 kernel (the local one through its window's tiles)
     err32 = {}
-    for label, (qs, ks, vs, window, off), _ in (cases[1], cases[3]):
+    for label, (qs, ks, vs, window, off), _ in cases:
         q, k, v = (rand(s, torch.float32) for s in (qs, ks, vs))
+        n0 = kernels.launch_counts()
+        got = attention(q, k, v, window=window, q_offset=off)
+        n1 = kernels.launch_counts()
+        counter = ("flash_attention_prefill_f32" if qs[2] > 1 else
+                   "flash_attention_decode")
+        moved = {n: n1[n] - n0[n] for n in n1 if n1[n] != n0[n]}
+        check(moved == {"flash_attention": 1, counter: 1}, f"f32 {label} "
+              f"ran {moved}, not {counter} alone")
         err32[label] = max_abs_err(
-            attention(q, k, v, window=window, q_offset=off),
-            attention_ref(q, k, v, window=window, q_offset=off))
+            got, attention_ref(q, k, v, window=window, q_offset=off))
         torch.cuda.synchronize()
         check(err32[label] <= 3e-5, f"flash_attention differs from plain in "
               f"f32 at {label}: {err32[label]}")
-        del q, k, v
+        del q, k, v, got
 
     served = served_shapes(rand, sdpa_call)
 
@@ -793,6 +977,7 @@ def lm_phase(dev) -> list[dict]:
           f"{time.perf_counter() - t_phase:.3f} s")
     del params, res
     torch.cuda.empty_cache()
+    st = stablelm_pass(dev)
     limits = {"bf16": "max abs <= 2e-2, and |kernel - plain| <= "
                       "2^-6 |plain| + 1e-5 per element",
               "f32": "max abs <= 3e-5"}
@@ -824,19 +1009,21 @@ def lm_phase(dev) -> list[dict]:
                f"f32_{top_label.replace(' ', '_')}_max_abs_err":
                    err32[top_label]}
         if old:
-            rec["served_shapes"] = served
             rec["launches_note"] = (
-                f"every attention() call on the path; {n_pre} of them ran "
-                f"flash_prefill.cu, {n_dec} flash_decode.cu and "
-                f"{n_fa - n_pre - n_dec} this source (whose f32 kernel "
-                f"attention_simt_kernel the f32 tail check runs); ms, "
-                f"errors and mma_ms are attention_mma_kernel through "
-                f"ops._attention_mma on the prefill inputs of this run")
+                f"the attention() wrapper's count: every call on the path; "
+                f"{n_pre} of them ran flash_prefill.cu, {n_dec} "
+                f"flash_decode.cu and none this source, which no route of "
+                f"attention() reaches; ms, errors and mma_ms are "
+                f"attention_mma_kernel through ops._attention_mma on the "
+                f"prefill inputs of this run, simt_ms attention_simt_kernel "
+                f"through ops._attention_simt at the f32 served shape")
             rec["mma_ms"] = {s["shape"]: s["mma_ms"] for s in mine}
+            rec["simt_ms"] = served["flash_attention_prefill_f32"]["old_ms"]
         else:
             rec["host_loop_ms"] = top["host_loop_ms"]
             rec["shapes"] = mine
         if name == "flash_attention_prefill":
+            rec["shapes"] = mine + [served["flash_attention_prefill"]]
             rec["serving"] = {
                 "prefill_ms": prefill_ms, "decode_ms_per_step": step_ms,
                 "decode_tok_per_s": tok_s,
@@ -845,10 +1032,29 @@ def lm_phase(dev) -> list[dict]:
                 "tail_rel_err_bf16": rel,
                 "tail_rel_err_bf16_plain_attention": rel_plain,
                 "tail_rel_err_bf16_last_tile_dropped": rel_wrong,
-                f"tail_rel_err_bf16_{LM_CUT_LAYERS}_layers": rel_cut,
-                "tail_rel_err_f32": rel32}
+                f"tail_rel_err_bf16_{LM_CUT_LAYERS}_layers": rel_cut}
+            rec["serving_stablelm"] = st
         print(f"kernel {name}: {json.dumps(rec)}")
         recs.append(rec)
+    sf = served["flash_attention_prefill_f32"]
+    rec = {"name": "flash_attention_prefill_f32", "route": "cuda",
+           "source": f"{csrc}/flash_prefill_f32.cu", "replaces": replaces,
+           "launches": n_pre32, "launches_note": (
+               f"the f32 path: the f32 tail check at {L} layers (a prefill "
+               f"of all but {LM_TAIL} prompt tokens, {LM_TAIL} decode steps, "
+               f"a whole prefill), counts zeroed before and read after"),
+           "max_abs_err": max(sf["max_abs_err"], err32["local prefill"],
+                              err32["global prefill"]),
+           "limits": limits, "ms": sf["ms"], "plain_ms": sf["plain_ms"],
+           "bound_ms": sf["bound_ms"], "bound_by": sf["bound_by"],
+           "library_ms": sf["library_ms"], "shape": sf["shape"],
+           "f32_rate_bound_ms": sf["f32_rate_bound_ms"],
+           "old_ms": sf["old_ms"],
+           "speedup_over_old": sf["speedup_over_old"],
+           "library_max_abs_err": sf["library_max_abs_err"],
+           "tail_rel_err_f32": rel32}
+    print(f"kernel flash_attention_prefill_f32: {json.dumps(rec)}")
+    recs.insert(1, rec)
     return recs
 
 
@@ -894,6 +1100,8 @@ def main() -> int:
     print(f"build: nvcc per source {json.dumps(build_s)}; all sources "
           f"{time.perf_counter() - t0:.3f} s wall (parallel)")
     for source, kernel in (("flash_prefill", "attention_prefill_kernel"),
+                           ("flash_prefill_f32",
+                            "attention_prefill_f32_kernel"),
                            ("delta_apply", "delta_apply_fused_kernel"),
                            ("segment_sum", "segment_sum_bucketed_kernel")):
         print_ptxas(_build.logs.get(source, ""), kernel)

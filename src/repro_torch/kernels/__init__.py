@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): snapshot retrieval
 (delta-apply, segment-sum) and LM serving (flash attention: a wgmma/TMA
-kernel for bf16 prefill, a split-K kernel for decode calls, and a general
-kernel for the rest).
+kernel for bf16 prefill, a TF32 tensor-core kernel for f32 prefill and a
+split-K kernel for decode calls).
 
 Each kernel directory has ``ops.py`` (the wrapper: dispatch by tensor
 device, launch counter) and ``ref.py`` (the plain PyTorch version); the

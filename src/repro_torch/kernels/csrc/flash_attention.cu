@@ -35,18 +35,16 @@
 //   by shuffle and lane-strided output columns, up to Dv = 256 in
 //   registers.
 //
-// Which calls come here (ops.py routes by shape).  Calls with few query
-// rows per KV head (decode: (Hq / Hkv)·Sq <= 8), which are bound by bytes,
-// go to the split-K kernel of flash_decode.cu (ops.decode_shape); bf16
-// prefill with D and Dv multiples of 64 up to 256 goes to the wgmma/TMA
-// kernel of flash_prefill.cu (ops.prefill_shape).  This file serves the
-// rest: f32 prefill (attention_simt_kernel; f32 calls with up to 4 rows
-// past the decode limit run attention_simt_kernel<1>), and bf16 prefill at
-// other head dims, such as stablelm-12b's D = 160, and at narrow widths
-// (attention_mma_kernel).  Prefill is bound by operations; mma.sync runs
-// below the wgmma rate and p·v costs three products here, so this kernel
-// stays below the bound; its times at the shapes it serves, beside the
-// bound and scaled_dot_product_attention's, are in PERF.md.
+// No route of ops.attention reaches this file.  Decode calls (at most 8
+// query rows per KV head) go to the split-K kernel of flash_decode.cu, other
+// bf16 calls at any head dim up to 256 to the wgmma/TMA kernel of
+// flash_prefill.cu, and other f32 calls to the TF32 tensor-core kernel of
+// flash_prefill_f32.cu.  Both kernels here stay as yardsticks only:
+// ops._attention_mma and ops._attention_simt call them (counting no
+// launch), and chip_smoke.py times them beside their replacements in the
+// same run.  mma.sync runs below the wgmma rate and p·v costs three
+// products in attention_mma_kernel; attention_simt_kernel uses no tensor
+// core; their times against the kernels that replaced them are in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,15 +1,15 @@
 // Flash-attention prefill for Hopper (sm_90a): wgmma on both products, Q, K
 // and V through TMA and an mbarrier ring, warp-specialised.
 //
-// Replaces, for bf16 calls that are not decode and whose head dims are
-// multiples of 64 up to 256 (ops.prefill_shape), the Pallas TPU kernel
+// Replaces, for every bf16 call that is not decode (ops.route: any
+// D and Dv up to 256), the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas
 // (body `_kernel`).  Same function: s = q·kᵀ·scale; keys masked by kpos < Sk,
 // causal qpos >= kpos and window qpos - kpos < window, where qpos = i +
 // q_offset; online softmax in f32; out = acc / max(l, 1e-30) in bf16, so a
 // row with no unmasked key comes out exactly 0.  GQA: query head h reads KV
-// head h / (Hq / Hkv) directly.  Other calls keep flash_attention.cu
-// (f32, D = 160, narrow widths) or flash_decode.cu (decode).
+// head h / (Hq / Hkv) directly.  f32 calls go to flash_prefill_f32.cu and
+// decode calls to flash_decode.cu.
 //
 // Bound.  Prefill is bound by operations: 2·(D + Dv) per unmasked (query,
 // key) pair at the bf16 tensor rate (its times against that bound are in
@@ -33,6 +33,15 @@
 //   TMA zero-fills rows past it.  With the 128-byte swizzle a box row holds
 //   64 bf16, so a tile of D columns is D / 64 boxes side by side, and the
 //   descriptors step across those 64-column chunks.
+// * Any head dim through five instantiations.  The kernel is instantiated
+//   at (D, Dv) in ops.PREFILL_DIMS; a call runs the smallest that holds its
+//   dims (ops.prefill_dims: stablelm-12b's D = 160 at (192, 192)).  Its
+//   maps keep the call's real D and Dv as the column extent, so TMA
+//   zero-fills the columns past them in shared memory: zeros change no
+//   score and add nothing to p·v, and the host copies nothing.  Boxes
+//   wholly past the real dims are not loaded (and Q·Kᵀ skips their
+//   chunks); p·v still runs at the instantiated Dv, and only the real Dv
+//   columns are stored.
 // * Warp specialisation.  A block is 3 warpgroups: one producer, whose
 //   first thread issues every TMA load, and two consumers of 64 query rows
 //   each (128 rows a block).  K and V tiles pass through a 2-stage ring:
@@ -77,6 +86,8 @@ struct Params {
   bf16* o;
   long long o_sb, o_sh, o_ss;   // output strides in elements; last dim 1
   int Hq, Hkv, Sq, Sk;
+  int d_chunks, dv_chunks;      // 64-column boxes that hold the real D, Dv
+  int dv;                       // real Dv (a multiple of 8): columns stored
   int causal;
   int window;                   // 0: no window
   int q_offset;
@@ -308,6 +319,53 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
                                                const uint32_t (&a)[4],
                                                uint64_t db) {
@@ -373,6 +431,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[DV / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (DV == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (DV == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (DV == 192) wgmma_rs_n192(d, a, db);
   else wgmma_rs_n256(d, a, db);
 }
 
@@ -443,24 +502,28 @@ attention_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, 2 * L::kQ);
+      // boxes wholly past the real D or Dv are not loaded (see the header)
+      mbar_expect_tx(q_full, 2 * kBM * kChunk * p.d_chunks);
 #pragma unroll
       for (int c = 0; c < D / kChunk; ++c)
-        tma_load(qs + c * kBM * kChunk, &tq, q_full, c * kChunk, q0, h, b);
+        if (c < p.d_chunks)
+          tma_load(qs + c * kBM * kChunk, &tq, q_full, c * kChunk, q0, h, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int kt = first; kt < end; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&k_full[stage], 2 * L::kK);
+        mbar_expect_tx(&k_full[stage], 2 * kBN * kChunk * p.d_chunks);
 #pragma unroll
         for (int c = 0; c < D / kChunk; ++c)
-          tma_load(ks + stage * L::kK + c * kBN * kChunk, &tk, &k_full[stage],
-                   c * kChunk, kt * kBN, hk, b);
-        mbar_expect_tx(&v_full[stage], 2 * L::kV);
+          if (c < p.d_chunks)
+            tma_load(ks + stage * L::kK + c * kBN * kChunk, &tk,
+                     &k_full[stage], c * kChunk, kt * kBN, hk, b);
+        mbar_expect_tx(&v_full[stage], 2 * kBN * kChunk * p.dv_chunks);
 #pragma unroll
         for (int c = 0; c < DV / kChunk; ++c)
-          tma_load(vs + stage * L::kV + c * kBN * kChunk, &tv, &v_full[stage],
-                   c * kChunk, kt * kBN, hk, b);
+          if (c < p.dv_chunks)
+            tma_load(vs + stage * L::kV + c * kBN * kChunk, &tv,
+                     &v_full[stage], c * kChunk, kt * kBN, hk, b);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -504,13 +567,15 @@ attention_prefill_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int c = 0; c < D / kChunk; ++c) {
+        if (c < p.d_chunks) {             // columns past the real D: none
 #pragma unroll
-        for (int j = 0; j < kChunk / 16; ++j) {
-          const uint64_t da = sw128_desc(qw + c * kBM * kChunk + j * 16, 16,
-                                         1024);
-          const uint64_t db = sw128_desc(kb + c * kBN * kChunk + j * 16, 16,
-                                         1024);
-          wgmma_ss_n64(s, da, db, c + j > 0);
+          for (int j = 0; j < kChunk / 16; ++j) {
+            const uint64_t da = sw128_desc(qw + c * kBM * kChunk + j * 16,
+                                           16, 1024);
+            const uint64_t db = sw128_desc(kb + c * kBN * kChunk + j * 16,
+                                           16, 1024);
+            wgmma_ss_n64(s, da, db, c + j > 0);
+          }
         }
       }
       wgmma_commit();
@@ -611,9 +676,11 @@ attention_prefill_kernel(const __grid_constant__ CUtensorMap tq,
                  2 * tq4;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
-      const __nv_bfloat162 y = __floats2bfloat162_rn(
-          o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = y;
+      if (8 * j < p.dv) {                 // the real Dv columns only
+        const __nv_bfloat162 y = __floats2bfloat162_rn(
+            o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = y;
+      }
     }
   }
 }
@@ -649,8 +716,9 @@ EncodeTiled encode_tiled() {
 
 // A 4-D bf16 map over (d, s, h, b) with element strides (ss, sh, sb) and a
 // box of 64 columns by `rows` rows, 128-byte swizzle, zero fill past the
-// extents.  A dimension of size 1 is never stepped: its stride is set to a
-// legal value.
+// extents (d is the call's real head dim, which may be narrower than the
+// box or end inside one).  A dimension of size 1 is never stepped: its
+// stride is set to a legal value.
 bool encode(CUtensorMap* map, const void* ptr, int d, int s, int h, int b,
             long long ss, long long sh, long long sb, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -707,18 +775,20 @@ const char* cuda_error_string(int err) {
 // bf16 q [B, Hq, Sq, D], k [B, Hkv, Sk, D], v [B, Hkv, Sk, Dv] and
 // o [B, Hq, Sq, Dv], each given by its batch, head and sequence strides (in
 // elements; the last dimension contiguous, every other stride a multiple of
-// 8, every pointer 16-byte aligned).  (D, Dv) is one of (64, 64),
-// (128, 128), (192, 128), (256, 256) (ops.PREFILL_DIMS).  window = 0 means
-// no window.
+// 8, every pointer 16-byte aligned; D a multiple of 16, Dv of 8), run by
+// the instantiation (Di, Dvi), one of (64, 64), (128, 128), (192, 128),
+// (192, 192), (256, 256) (ops.PREFILL_DIMS) with Di >= D and Dvi >= Dv.
+// window = 0 means no window.
 int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
                          long long q_sb, long long q_sh, long long q_ss,
                          long long k_sb, long long k_sh, long long k_ss,
                          long long v_sb, long long v_sh, long long v_ss,
                          long long o_sb, long long o_sh, long long o_ss, int B,
                          int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
-                         int causal, int window, int q_offset, float scale,
-                         void* stream) {
-  if (Hkv <= 0 || Hq % Hkv || (Sq + kBM - 1) / kBM > 65535)
+                         int Di, int Dvi, int causal, int window, int q_offset,
+                         float scale, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv || (Sq + kBM - 1) / kBM > 65535 || D < 1 ||
+      Dv < 1 || D > Di || Dv > Dvi || D % 16 || Dv % 8)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Hq == 0 || Sq == 0) return (int)cudaSuccess;
   CUtensorMap tq, tk, tv;
@@ -727,14 +797,17 @@ int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
       !encode(&tv, v, Dv, Sk > 0 ? Sk : 1, Hkv, B, v_ss, v_sh, v_sb, kBN))
     return (int)cudaErrorInvalidValue;
   const Params p{static_cast<bf16*>(o), o_sb, o_sh, o_ss, Hq, Hkv, Sq, Sk,
+                 (D + kChunk - 1) / kChunk, (Dv + kChunk - 1) / kChunk, Dv,
                  causal, window, q_offset, scale * 1.4426950408889634f};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64 && Dv == 64) return (int)launch<64, 64>(tq, tk, tv, p, B, st);
-  if (D == 128 && Dv == 128)
+  if (Di == 64 && Dvi == 64) return (int)launch<64, 64>(tq, tk, tv, p, B, st);
+  if (Di == 128 && Dvi == 128)
     return (int)launch<128, 128>(tq, tk, tv, p, B, st);
-  if (D == 192 && Dv == 128)
+  if (Di == 192 && Dvi == 128)
     return (int)launch<192, 128>(tq, tk, tv, p, B, st);
-  if (D == 256 && Dv == 256)
+  if (Di == 192 && Dvi == 192)
+    return (int)launch<192, 192>(tq, tk, tv, p, B, st);
+  if (Di == 256 && Dvi == 256)
     return (int)launch<256, 256>(tq, tk, tv, p, B, st);
   return (int)cudaErrorInvalidValue;
 }

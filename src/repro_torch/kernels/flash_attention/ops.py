@@ -5,16 +5,21 @@
 it dispatches by the device of its tensors
 (:mod:`repro_torch.kernels.policy`).  CPU tensors go to the plain version
 in ``ref.py``.  CUDA tensors go to one of three hand-written kernels,
-built at first use, by a rule on the call's shape (never as a fallback
-when one fails): calls with few query rows per KV head
-(:func:`decode_shape`: decode) to the split-K kernel of
-``csrc/flash_decode.cu``; other bf16 calls with head dims that are
-multiples of 64 (:func:`prefill_shape`) to the wgmma/TMA kernel of
-``csrc/flash_prefill.cu``; every other call (f32, D = 160, narrow test
-widths) to ``csrc/flash_attention.cu``.  :data:`launches` counts launches
-where they are made and nowhere else: ``flash_attention`` every kernel
-call of :func:`attention`, ``flash_attention_prefill`` and
-``flash_attention_decode`` those that took the prefill or split-K kernel.
+built at first use, by a rule on the call's shape and dtype
+(:func:`route`; never as a fallback when one fails): calls with few query
+rows per KV head (:func:`decode_shape`: decode) to the split-K kernel of
+``csrc/flash_decode.cu``; other bf16 calls, at any head dim up to 256, to
+the wgmma/TMA kernel of ``csrc/flash_prefill.cu``; other f32 calls to the
+TF32 tensor-core kernel of ``csrc/flash_prefill_f32.cu``.  Both prefill kernels are instantiated
+at a few head dims and run the smallest that holds the call's
+(:func:`prefill_dims`); TMA zero-fills the columns past the real dims, so
+nothing is padded on the host.  ``csrc/flash_attention.cu``, the first
+design, is no route of :func:`attention`: :func:`_attention_mma` and
+:func:`_attention_simt` keep its kernels callable as yardsticks.
+:data:`launches` counts launches where they are made and nowhere else:
+``flash_attention`` every kernel call of :func:`attention`,
+``flash_attention_prefill``, ``flash_attention_prefill_f32`` and
+``flash_attention_decode`` those that took each kernel.
 
 GQA is not broadcast here: the kernel reads KV head ``h // (Hq / Hkv)``
 itself.  Inputs may be strided views (a transposed projection, a slice of
@@ -33,7 +38,7 @@ from ..policy import use_kernel
 from .ref import attention_ref
 
 launches = {"flash_attention": 0, "flash_attention_prefill": 0,
-            "flash_attention_decode": 0}
+            "flash_attention_prefill_f32": 0, "flash_attention_decode": 0}
 
 MAX_HEAD_DIM = 256          # the kernel keeps a row's Dv outputs in registers
 _MAX_GRID_Y = 65535         # B·Hq blocks on the grid's second axis
@@ -49,20 +54,31 @@ DECODE_TILE = 32            # keys per tile (kTile)
 DECODE_MIN_TILES = 2        # a split reads at least this many tiles
 DECODE_BLOCKS_PER_SM = 2    # 96 KB of bf16 K/V ring each at D = Dv = 256
 
-# The prefill kernel (csrc/flash_prefill.cu): blocks of 128 query rows, two
-# consumer warpgroups of 64 rows each, over 64-key tiles.  Its (D, Dv)
-# instantiations; other multiples of 64 are zero-padded to one of them
+# The bf16 prefill kernel (csrc/flash_prefill.cu): blocks of 128 query rows,
+# two consumer warpgroups of 64 rows each, over 64-key tiles.  Its (D, Dv)
+# instantiations, cheapest first; a call runs the first that holds its dims
 # (:func:`prefill_dims`).
 PREFILL_WG_ROWS = 64        # kWgRows
 PREFILL_BLOCK_N = 64        # kBN
-PREFILL_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
+PREFILL_DIMS = ((64, 64), (128, 128), (192, 128), (192, 192), (256, 256))
+# The f32 prefill kernel (csrc/flash_prefill_f32.cu): blocks of eight
+# consumer warps of 16 query rows each, over 32-key tiles; its
+# instantiations.
+PREFILL_F32_WARP_ROWS = 16  # kWarpRows
+PREFILL_F32_BLOCK_N = 32    # kBN
+PREFILL_F32_DIMS = ((64, 64), (128, 128), (256, 256))
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _SIGNATURES = {"flash_attention_launch": [_P, _P, _P, _P, *[_L] * 12,
                                           *[_I] * 10, _F, _I, _P]}
-_PREFILL_SIGNATURES = {"flash_prefill_launch": [_P, _P, _P, _P, *[_L] * 12,
-                                               *[_I] * 10, _F, _P]}
+# the two prefill kernels, by dtype: source, launch counter, instantiations
+# (both launch functions take the same arguments)
+_PREFILL = {torch.bfloat16: ("flash_prefill", "flash_attention_prefill",
+                             PREFILL_DIMS),
+            torch.float32: ("flash_prefill_f32", "flash_attention_prefill_f32",
+                            PREFILL_F32_DIMS)}
+_PREFILL_ARGS = [_P, _P, _P, _P, *[_L] * 12, *[_I] * 12, _F, _P]
 _DECODE_SIGNATURES = {"flash_decode_launch": [*[_P] * 6, *[_L] * 12,
                                               *[_I] * 10, _F, *[_I] * 5, _P]}
 
@@ -92,26 +108,27 @@ def decode_shape(Sq: int, Hq: int, Hkv: int, D: int, Dv: int) -> bool:
             DECODE_MAX_ROWS and D <= MAX_HEAD_DIM and Dv <= MAX_HEAD_DIM)
 
 
-def prefill_shape(Sq: int, Hq: int, Hkv: int, D: int, Dv: int,
-                  dtype: torch.dtype) -> bool:
-    """True for calls the wgmma/TMA prefill kernel takes: bf16, not
-    :func:`decode_shape`, D and Dv multiples of 64 up to
-    :data:`MAX_HEAD_DIM`."""
-    return (dtype == torch.bfloat16 and
-            not decode_shape(Sq, Hq, Hkv, D, Dv) and
-            D % 64 == 0 and Dv % 64 == 0 and 0 < D <= MAX_HEAD_DIM and
-            0 < Dv <= MAX_HEAD_DIM)
+def route(Sq: int, Hq: int, Hkv: int, D: int, Dv: int,
+          dtype: torch.dtype) -> str:
+    """The source whose kernel :func:`attention` launches for a call:
+    ``flash_decode`` for :func:`decode_shape`, else the prefill kernel of
+    the dtype (``flash_prefill`` in bf16, ``flash_prefill_f32`` in f32) at
+    any head dims from 1 to :data:`MAX_HEAD_DIM`; raises ``ValueError``
+    for any other call."""
+    if not (dtype in _PREFILL and 0 < D <= MAX_HEAD_DIM and
+            0 < Dv <= MAX_HEAD_DIM):
+        raise ValueError(f"no attention kernel takes {dtype} at D={D}, "
+                         f"Dv={Dv}")
+    return ("flash_decode" if decode_shape(Sq, Hq, Hkv, D, Dv) else
+            _PREFILL[dtype][0])
 
 
-def prefill_dims(D: int, Dv: int) -> tuple[int, int]:
-    """The instantiation of the prefill kernel a ``(D, Dv)`` call runs:
-    itself when it is one of :data:`PREFILL_DIMS`, else both padded to the
-    smallest of 64, 128, 256 that holds them (zeros change no score, and
-    the extra output columns are dropped)."""
-    if (D, Dv) in PREFILL_DIMS:
-        return D, Dv
-    d = next(n for n in (64, 128, 256) if n >= max(D, Dv))
-    return d, d
+def prefill_dims(D: int, Dv: int, dims=PREFILL_DIMS) -> tuple[int, int]:
+    """The instantiation a ``(D, Dv)`` call runs: the first of ``dims``
+    (:data:`PREFILL_DIMS`, or :data:`PREFILL_F32_DIMS` for the f32 kernel)
+    that holds both.  The kernel reads the real dims and finds zeros past
+    them (TMA's fill), which change no score and add nothing to p·v."""
+    return next(d for d in dims if d[0] >= D and d[1] >= Dv)
 
 
 class PrefillTiles(NamedTuple):
@@ -180,7 +197,7 @@ def plan_splits(Sq: int, Sk: int, *, causal: bool, window: int | None,
 
 def _aligned(t: torch.Tensor, unit: int) -> bool:
     """Every stride a multiple of ``unit`` elements and the first element
-    on a 16-byte boundary: the bf16 kernel copies 16-byte chunks."""
+    on a 16-byte boundary: the kernels copy 16-byte chunks."""
     *outer, last = t.stride()
     if last != 1 or t.data_ptr() % 16:
         return False
@@ -192,20 +209,18 @@ def _aligned(t: torch.Tensor, unit: int) -> bool:
 
 def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, window: int | None, q_offset: int,
-                scale: float | None, decode: bool = False) -> tuple:
+                scale: float | None) -> tuple:
     """Check what the kernel takes and return ``(q, k, v, sizes, flags)``
     as it takes them; raises ``TypeError`` or ``ValueError`` on anything
     else (head dims above :data:`MAX_HEAD_DIM` included).
 
-    Views are passed by their strides when the last dimension is
-    contiguous (f32) or when every stride is a multiple of 8 elements and
-    the data 16-byte aligned (bf16); others are copied.  For bf16, D is
-    zero-padded to a multiple of 16 and Dv to a multiple of 8 (the tensor
-    cores' tile; zeros change no score and the extra output columns are
-    dropped): ``sizes`` then holds the padded dims.  For the decode kernel
-    (``decode``), which copies 16-byte chunks in either dtype, f32 D and Dv
-    are padded to multiples of 4 and f32 views need strides in multiples of
-    4 elements and 16-byte aligned data."""
+    Every kernel copies 16-byte chunks (TMA, or 16-byte loads): views are
+    passed by their strides when the last dimension is contiguous, the
+    data 16-byte aligned and every other stride a multiple of 16 bytes (8
+    bf16, 4 f32 elements); others are copied.  D and Dv are zero-padded to
+    multiples of 16 and 8 in bf16 (the tensor cores' tile) and of 4 in f32
+    (zeros change no score and the extra output columns are dropped):
+    ``sizes`` then holds the padded dims."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes f32 or bf16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -219,33 +234,24 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or Hkv == 0 or Hq % Hkv):
         raise ValueError(f"attention shapes do not fit: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
-        raise ValueError(f"attention kernel supports head dims up to "
+    if not (0 < D <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM):
+        raise ValueError(f"attention kernel supports head dims from 1 up to "
                          f"{MAX_HEAD_DIM}, got D={D}, Dv={Dv}")
     if B * Hq > _MAX_GRID_Y:
         raise ValueError(f"attention kernel takes B·Hq <= {_MAX_GRID_Y}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     scale = float(scale if scale is not None else D ** -0.5)
-    if q.dtype == torch.bfloat16:
-        Dp, Dvp = -(-D // 16) * 16, -(-Dv // 8) * 8
-        if Dp != D:
-            q, k = (F.pad(t, (0, Dp - D)) for t in (q, k))
-        if Dvp != Dv:
-            v = F.pad(v, (0, Dvp - Dv))
-        D, Dv = Dp, Dvp
-        q, k, v = (t if _aligned(t, 8) else t.contiguous() for t in (q, k, v))
-    elif decode:
-        Dp, Dvp = -(-D // 4) * 4, -(-Dv // 4) * 4
-        if Dp != D:
-            q, k = (F.pad(t, (0, Dp - D)) for t in (q, k))
-        if Dvp != Dv:
-            v = F.pad(v, (0, Dvp - Dv))
-        D, Dv = Dp, Dvp
-        q, k, v = (t if _aligned(t, 4) else t.contiguous() for t in (q, k, v))
-    else:
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (q, k, v))
+    bf16 = q.dtype == torch.bfloat16
+    unit = 8 if bf16 else 4               # elements in 16 bytes
+    d_unit = 16 if bf16 else 4            # bf16 D: the k16 tensor-core tile
+    Dp, Dvp = -(-D // d_unit) * d_unit, -(-Dv // unit) * unit
+    if Dp != D:
+        q, k = (F.pad(t, (0, Dp - D)) for t in (q, k))
+    if Dvp != Dv:
+        v = F.pad(v, (0, Dvp - Dv))
+    D, Dv = Dp, Dvp
+    q, k, v = (t if _aligned(t, unit) else t.contiguous() for t in (q, k, v))
     win = 0 if window is None else min(int(window), 2 ** 31 - 1)
     sizes = (B, Hq, Hkv, Sq, Sk, D, Dv)
     flags = (int(bool(causal)), win, int(q_offset), scale)
@@ -264,20 +270,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)
     dv = v.shape[-1]
-    decode = prefill = False
-    if q.dim() == k.dim() == 4:
-        shape = (q.shape[2], q.shape[1], k.shape[1], q.shape[3], dv)
-        decode = decode_shape(*shape)
-        prefill = prefill_shape(*shape, q.dtype)
     q, k, v, sizes, flags = kernel_args(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
-        scale=scale, decode=decode)
-    if decode:
-        out = _decode(q, k, v, sizes, flags)
-    elif prefill:
-        out = _prefill(q, k, v, sizes, flags)
-    else:
-        out = _mma(q, k, v, sizes, flags)
+        scale=scale)
+    B, Hq, Hkv, Sq, Sk, D, Dv = sizes
+    source = route(Sq, Hq, Hkv, D, Dv, q.dtype)
+    out = (_decode if source == "flash_decode" else _prefill)(
+        q, k, v, sizes, flags)
     launches["flash_attention"] += 1
     return out if out.shape[-1] == dv else out[..., :dv]
 
@@ -287,16 +286,26 @@ def _attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_offset: int = 0, scale: float | None = None
                    ) -> torch.Tensor:
     """CUDA tensors through ``flash_attention.cu`` at any shape
-    (``attention_mma_kernel`` in bf16): the prefill design before
-    ``flash_prefill.cu``, kept as the yardstick that ``chip_smoke.py`` and
-    the card tests time beside it.  Counts no launch; the serving path
-    never calls it."""
+    (``attention_mma_kernel`` in bf16, ``attention_simt_kernel`` in f32):
+    the first designs, kept as the yardsticks that ``chip_smoke.py`` and
+    the card tests time beside the kernels that replaced them.  Counts no
+    launch; no route of :func:`attention` calls it."""
     dv = v.shape[-1]
     q, k, v, sizes, flags = kernel_args(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
         scale=scale)
     out = _mma(q, k, v, sizes, flags)
     return out if out.shape[-1] == dv else out[..., :dv]
+
+
+def _attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    **kw) -> torch.Tensor:
+    """f32 CUDA tensors through ``attention_simt_kernel`` (CUDA cores, the
+    f32 design before ``flash_prefill_f32.cu``): :func:`_attention_mma`
+    for f32 inputs, a yardstick that counts no launch."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"attention_simt_kernel takes f32, got {q.dtype}")
+    return _attention_mma(q, k, v, **kw)
 
 
 def _strides(*tensors: torch.Tensor) -> list[int]:
@@ -323,24 +332,22 @@ def _mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
 
 def _prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
              flags: tuple) -> torch.Tensor:
-    """Launch ``csrc/flash_prefill.cu`` on :func:`kernel_args`' output,
-    head dims zero-padded to :func:`prefill_dims`."""
-    lib = _build.load("flash_prefill", _PREFILL_SIGNATURES)
+    """Launch the prefill kernel of ``q``'s dtype (``csrc/flash_prefill.cu``
+    in bf16, ``csrc/flash_prefill_f32.cu`` in f32) on :func:`kernel_args`'
+    output, at the instantiation :func:`prefill_dims` picks; the kernel
+    reads the real head dims and writes a ``[B, Hq, Sq, Dv]`` output."""
+    source, counter, dims = _PREFILL[q.dtype]
+    fn = f"{source}_launch"
+    lib = _build.load(source, {fn: _PREFILL_ARGS})
     B, Hq, Hkv, Sq, Sk, D, Dv = sizes
-    Dp, Dvp = prefill_dims(D, Dv)
-    if Dp != D:
-        q, k = (F.pad(t, (0, Dp - D)) for t in (q, k))
-    if Dvp != Dv:
-        v = F.pad(v, (0, Dvp - Dv))
-    out = torch.empty((B, Hq, Sq, Dvp), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.flash_prefill_launch(
+        err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *_strides(q, k, v, out),
-            B, Hq, Hkv, Sq, Sk, Dp, Dvp, *flags,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "flash_prefill", err)
-    launches["flash_attention_prefill"] += 1
+            *_strides(q, k, v, out), *sizes, *prefill_dims(D, Dv, dims),
+            *flags, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, fn, err)
+    launches[counter] += 1
     return out
 
 

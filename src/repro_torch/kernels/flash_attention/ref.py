@@ -12,9 +12,12 @@ there).  GQA goes by head index: query head ``h`` reads KV head
 rather than online; the CPU path and the tests use it, and nothing on the
 card's main path does.
 
-:func:`attention_splitk_ref` is the algebra of ``flash_decode.cu`` in plain
-PyTorch (per-split ``(acc, m, l)``, then their combine); only the tests
-use it, to show it equals :func:`attention_ref` for any cut of the keys.
+:func:`split_bf16` and :func:`split_tf32` emulate how the prefill kernels
+carry f32 values into the tensor cores (``attention_ref``'s ``p_terms``
+and ``tf32_terms``; tests only).  :func:`attention_splitk_ref` is the
+algebra of ``flash_decode.cu`` in plain PyTorch (per-split ``(acc, m,
+l)``, then their combine); only the tests use it, to show it equals
+:func:`attention_ref` for any cut of the keys.
 """
 from __future__ import annotations
 
@@ -39,20 +42,24 @@ def visible(Sq: int, Sk: int, *, causal: bool, window: int | None,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
                   q_offset: int = 0, scale: float | None = None,
-                  p_terms: int | None = None) -> torch.Tensor:
+                  p_terms: int | None = None,
+                  tf32_terms: int | None = None) -> torch.Tensor:
     """q: [B, Hq, Sq, D]; k: [B, Hkv, Sk, D]; v: [B, Hkv, Sk, Dv];
     Hq % Hkv == 0 -> [B, Hq, Sq, Dv] in ``q.dtype``.
 
     ``p_terms`` (tests only) carries p into p·v as ``flash_prefill.cu``
     does, as a sum of bf16 terms: 2 gives ``P_hi + P_lo`` with ``P_hi =
     bf16(p)`` and ``P_lo = bf16(p - P_hi)`` (within 2^-16 |p| of p), 1
-    rounds p once to bf16; None keeps p in f32."""
+    rounds p once to bf16; None keeps p in f32.  ``tf32_terms`` (tests
+    only) takes both products as ``flash_prefill_f32.cu`` does, each a sum
+    of TF32 products (:func:`tf32_product`): 3 for the kernel's
+    ``A_hi·B_hi + A_hi·B_lo + A_lo·B_hi``, 1 for one TF32 product."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     qf = q.float().reshape(B, Hkv, G, Sq, D)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    s = tf32_product("bhgqd,bhkd->bhgqk", qf, k.float(), tf32_terms) * scale
     mask = visible(Sq, Sk, causal=causal, window=window, q_offset=q_offset,
                    device=q.device)
     s = torch.where(mask, s, NEG_INF)
@@ -61,7 +68,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     if p_terms is not None:
         p = split_bf16(p, p_terms)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    out = tf32_product("bhgqk,bhkd->bhgqd", p, v.float(), tf32_terms)
     out = out / torch.clamp(l, min=1e-30)
     return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
 
@@ -73,6 +80,37 @@ def split_bf16(p: torch.Tensor, terms: int) -> torch.Tensor:
     for _ in range(terms):
         t = (p - out).bfloat16().float()
         out = out + t
+    return out
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: half of the 13 dropped
+    bits' unit is added to the magnitude bits, then they are cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: ``hi = tf32(x)``, ``lo = tf32(x - hi)``, so that
+    ``|x - hi - lo| <= 2^-22 |x|``."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor,
+                 terms: int | None) -> torch.Tensor:
+    """``einsum(eq, a, b)`` in f32 (``terms`` None), or as TF32 products
+    summed in f32: 3 gives ``A_hi·B_hi + A_hi·B_lo + A_lo·B_hi``, within
+    3·2^-22 Σ|a||b| of the f32 product; 1 gives ``A_hi·B_hi``."""
+    if terms is None:
+        return torch.einsum(eq, a, b)
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        out = out + (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh))
+    elif terms != 1:
+        raise ValueError(f"tf32_terms is 1 or 3, got {terms}")
     return out
 
 

@@ -15,10 +15,14 @@ The split-K decode kernel's algebra (``attention_splitk_ref``: per-split
 ``(acc, m, l)`` and their combine) is held against ``attention_ref`` and
 the JAX package at decode shapes for any cut of the keys, and its host
 planner (``ops.plan_splits``, ``ops.decode_shape``) is checked here.  For
-the wgmma/TMA prefill kernel the routing rule (``ops.prefill_shape``), its
+the wgmma/TMA prefill kernel the routing rule (``ops.route``), its
 tile plan (``ops.prefill_tile_plan``, which the kernel mirrors) against
 the mask, and the two-term bf16 split of p (``attention_ref(p_terms=2)``)
-against the JAX package are checked here.  The CUDA kernels themselves are
+against the JAX package are checked here; for the f32 prefill kernel the
+three-term TF32 products (``attention_ref(tf32_terms=3)``) against the f32
+plain version and the Pallas kernel, and for stablelm's D = 160 at the
+(192, 192) instantiation that zero columns past D at the unchanged scale
+change nothing.  The CUDA kernels themselves are
 held against the plain version on the card by ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``.
 """
@@ -208,30 +212,27 @@ def test_kernel_args_checks():
     q5 = torch.ones(1, 4, 1, 10)
     k5, v5 = torch.ones(1, 1, 7, 10), torch.ones(1, 1, 7, 6)
     dq, dk, dv, dsizes, dflags = fa_ops.kernel_args(
-        q5, k5, v5, causal=True, window=None, q_offset=6, scale=None,
-        decode=True)
+        q5, k5, v5, causal=True, window=None, q_offset=6, scale=None)
     assert dsizes[5:] == (12, 8) and dflags[3] == 10 ** -0.5
     assert torch.equal(dq[..., :10], q5) and not dq[..., 10:].any()
     assert not dv[..., 6:].any()
-    assert fa_ops.kernel_args(q5, k5, v5, causal=True, window=None,
-                              q_offset=6, scale=None)[3][5:] == (10, 6)
     wide = torch.ones(1, 1, 7, 13)[..., :12]                # row stride 13
     got = fa_ops.kernel_args(torch.ones(1, 4, 1, 12), wide, wide,
                              causal=True, window=None, q_offset=6,
-                             scale=None, decode=True)
+                             scale=None)
     assert got[1].stride(-2) % 4 == 0 and torch.equal(got[1], wide)
 
 
 @pytest.mark.parametrize("Sq,source", [(4, "flash_decode"),
-                                       (40, "flash_attention"),
+                                       (40, "flash_prefill_f32"),
                                        (40, "flash_prefill")])
 def test_no_fallback_to_plain(monkeypatch, Sq, source):
     """Inputs the policy sends to a kernel are launched or raise: with the
     dispatch forced to the kernels and their build failing, the call
     raises instead of answering with the plain version, and no launch is
     counted.  Sq = 4 rows on one KV head takes the decode kernel, Sq = 40
-    in f32 at D = 16 ``flash_attention.cu``, Sq = 40 in bf16 at D = 64 the
-    wgmma/TMA prefill kernel."""
+    in f32 at D = 16 the TF32 prefill kernel, Sq = 40 in bf16 at D = 64
+    the wgmma/TMA prefill kernel."""
     def failed_build(name, signatures):
         raise RuntimeError(f"nvcc {name}.cu failed")
 
@@ -248,29 +249,40 @@ def test_no_fallback_to_plain(monkeypatch, Sq, source):
 
 
 def test_prefill_shape():
-    """bf16 prefill of gemma3-1b (256) and of the D = 128 archs (yi-34b,
-    arctic, deepseek-v3) takes the wgmma/TMA kernel; stablelm's D = 160,
-    the reduced test widths (16, 24), f32 and decode shapes do not."""
+    """The router (``ops.route``, what ``attention()`` launches by): every
+    bf16 call that is not decode takes the wgmma/TMA kernel, at any head
+    dim up to 256: gemma3-1b (256), the D = 128 archs (yi-34b, arctic,
+    deepseek-v3), stablelm's D = 160 and the reduced test widths; f32
+    takes the TF32 kernel, decode shapes the split-K kernel, and dims past
+    256 none.  Each call runs the cheapest instantiation that holds its
+    dims: D = 160 at (192, 192), the MLA prefill at (192, 128)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    for name in ("gemma3-1b", "yi-34b", "arctic-480b", "deepseek-v3-671b"):
+    for name in ("gemma3-1b", "yi-34b", "arctic-480b", "deepseek-v3-671b",
+                 "stablelm-12b"):
         cfg = LM_ARCHS[name][0]
         H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        assert fa_ops.prefill_shape(4096, H, Hkv, Dh, Dh, bf16), name
-        assert not fa_ops.prefill_shape(4096, H, Hkv, Dh, Dh, f32), name
+        assert fa_ops.route(4096, H, Hkv, Dh, Dh, bf16) == "flash_prefill"
+        assert fa_ops.route(4096, H, Hkv, Dh, Dh, f32) == "flash_prefill_f32"
     g = GEMMA3_1B
-    assert not fa_ops.prefill_shape(1, g.n_heads, 1, 256, 256, bf16)
-    assert not fa_ops.prefill_shape(2, g.n_heads, 1, 256, 256, bf16)
-    assert fa_ops.prefill_shape(3, g.n_heads, 1, 256, 256, bf16)
-    st = LM_ARCHS["stablelm-12b"][0]
-    assert not fa_ops.prefill_shape(4096, st.n_heads, st.n_kv_heads, 160,
-                                    160, bf16)
-    for d in (16, 24, 32, 320):
-        assert not fa_ops.prefill_shape(64, 4, 1, d, d, bf16), d
-    assert fa_ops.prefill_shape(40, 2, 1, 192, 128, bf16)   # MLA prefill
-    assert not fa_ops.prefill_shape(40, 2, 1, 192, 96, bf16)
+    assert fa_ops.route(1, g.n_heads, 1, 256, 256, bf16) == "flash_decode"
+    assert fa_ops.route(2, g.n_heads, 1, 256, 256, bf16) == "flash_decode"
+    assert fa_ops.route(2, g.n_heads, 1, 256, 256, f32) == "flash_decode"
+    assert fa_ops.route(3, g.n_heads, 1, 256, 256, bf16) == "flash_prefill"
+    for d in (16, 24, 32, 160):
+        assert fa_ops.route(64, 4, 1, d, d, bf16) == "flash_prefill", d
+    for bad in ((320, 320, bf16), (64, 64, torch.float16)):
+        with pytest.raises(ValueError, match="no attention kernel"):
+            fa_ops.route(64, 4, 1, *bad)
+    for dv in (128, 96):            # the MLA prefill, and a mixed width
+        assert fa_ops.route(40, 2, 1, 192, dv, bf16) == "flash_prefill"
     assert [fa_ops.prefill_dims(*d) for d in
-            ((64, 64), (192, 128), (192, 192), (64, 128), (256, 128))] == [
-        (64, 64), (192, 128), (256, 256), (128, 128), (256, 256)]
+            ((64, 64), (192, 128), (192, 192), (160, 160), (192, 96),
+             (64, 128), (256, 128), (16, 16))] == [
+        (64, 64), (192, 128), (192, 192), (192, 192), (192, 128),
+        (128, 128), (256, 256), (64, 64)]
+    assert [fa_ops.prefill_dims(*d, fa_ops.PREFILL_F32_DIMS) for d in
+            ((256, 256), (160, 160), (16, 8), (128, 64))] == [
+        (256, 256), (256, 256), (64, 64), (128, 128)]
 
 
 PREFILL_PLAN_CASES = [
@@ -292,7 +304,8 @@ PREFILL_PLAN_CASES = [
 
 
 @pytest.mark.parametrize("case", PREFILL_PLAN_CASES)
-@pytest.mark.parametrize("block_m,block_n", [(64, 64), (128, 64), (64, 32)])
+@pytest.mark.parametrize("block_m,block_n", [(64, 64), (128, 64), (64, 32),
+                                             (16, 32)])
 def test_prefill_tile_plan(case, block_m, block_n):
     """For each query tile, against the mask itself: every key tile outside
     ``[first, end)`` is wholly masked for the tile's real rows, the first
@@ -372,6 +385,66 @@ def test_two_term_p_split(shape):
     p = torch.from_numpy(rng.random(4096, dtype=np.float32))
     split = fa_ops_ref.split_bf16(p, 2)
     assert bool(((split - p).abs() <= 2.0 ** -16 * p.abs()).all())
+
+
+TF32_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_off)
+    (1, 4, 1, 48, 48, 64, 64, True, None, 0),
+    (1, 2, 1, 40, 72, 32, 32, True, 16, 32),
+    (2, 2, 2, 16, 48, 16, 16, False, None, 0),
+    (1, 4, 4, 16, 16, 24, 8, True, None, 0),
+    (1, 2, 1, 33, 33, 256, 256, True, None, 0),
+]
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_tf32_three_term_products(shape):
+    """``flash_prefill_f32.cu``'s arithmetic: both products as three TF32
+    products, ``A_hi·B_hi + A_hi·B_lo + A_lo·B_hi`` with ``x_hi =
+    tf32(x)`` and ``x_lo = tf32(x - x_hi)`` (``attention_ref(tf32_terms=3)``),
+    within the f32 limit of 3e-5 of the f32 plain version and of the
+    Pallas kernel (interpret mode); one TF32 product (10 mantissa bits)
+    misses that limit.  The split itself: ``|x - hi - lo| <= 2^-22 |x|``
+    and each term has its low 13 bits clear."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
+    rng = np.random.default_rng(Sq * Sk + D + 11)
+    (jq, jk, jv), (q, k, v) = _inputs(rng, B, Hq, Hkv, Sq, Sk, D, Dv,
+                                      "float32")
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    tol = TOL["float32"]
+    want = _f32(attention_ref(q, k, v, **kw))
+    three = _f32(attention_ref(q, k, v, tf32_terms=3, **kw))
+    one = _f32(attention_ref(q, k, v, tf32_terms=1, **kw))
+    assert_allclose(three, want, rtol=tol, atol=tol)
+    assert_allclose(three, _f32(_pallas(jq, jk, jv, **kw)), rtol=tol,
+                    atol=tol)
+    assert np.abs(one - want).max() > tol + tol * np.abs(want).max()
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    hi, lo = fa_ops_ref.split_tf32(x)
+    assert bool(((x - hi - lo).abs() <= 2.0 ** -22 * x.abs()).all())
+    for t in (hi, lo):
+        assert not bool((t.view(torch.int32) & 0x1FFF).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zero_columns_change_nothing(dtype):
+    """stablelm-12b's D = 160 runs the (192, 192) instantiation, whose
+    TMA loads fill the columns past 160 with zeros: q, k and v padded with
+    zeros to 192 at the unchanged scale ``160 ** -0.5`` give the unpadded
+    result in its first 160 columns (f32 within 1e-6: only the order of
+    the sums differs; bf16 within one ulp), and the Pallas kernel's."""
+    rng = np.random.default_rng(160)
+    B, Hq, Hkv, S, D = 1, 4, 1, 40, 160
+    (jq, jk, jv), (q, k, v) = _inputs(rng, B, Hq, Hkv, S, S, D, D, dtype)
+    kw = dict(causal=True, window=None, q_offset=0)
+    want = attention(q, k, v, **kw)
+    padded = attention(*(torch.nn.functional.pad(t, (0, 32))
+                         for t in (q, k, v)), scale=D ** -0.5, **kw)
+    assert padded.shape[-1] == 192 and not padded[..., D:].any()
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -7
+    assert_allclose(_f32(padded[..., :D]), _f32(want), rtol=tol, atol=1e-6)
+    assert_allclose(_f32(padded[..., :D]), _f32(_pallas(jq, jk, jv, **kw)),
+                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
 # gemma3-1b at the smoke run's decode: B = 8, 4 query heads on 1 KV head

@@ -12,8 +12,11 @@ attention the JAX suite's shape sweep plus D = 256 with GQA 4:1, windows,
 rows without a key, strided inputs, the split-K decode kernel at the
 gemma3-1b decode shapes, the wgmma/TMA prefill kernel on ragged tiles,
 windows, chunked prefill, GQA groups, every head-dim instantiation and
-cache slices, the old prefill kernel (kept as a yardstick) at gemma3-1b
-widths, and a reduced LM on the card; for the temporal engine,
+cache slices, stablelm's D = 160 through it (the (192, 192)
+instantiation, TMA filling the columns past 160), the TF32 f32 prefill
+kernel on the same cases and on few-row calls just past the decode limit,
+the old kernels of ``flash_attention.cu`` (kept as yardsticks) at
+gemma3-1b widths, and a reduced LM on the card; for the temporal engine,
 ``evolve_intervals_torch`` (monolithic and streamed), the batch loader
 and both fixpoint solvers on the card against the port's own CPU runs.
 This file imports no JAX, so it runs on a machine without it::
@@ -306,7 +309,8 @@ def test_cuda_attention_matches_plain(cuda_device, shape, dtype):
     """Kernel against plain on the same inputs: 3e-5 in f32; in bf16 each
     element within 2^-6·|plain| + 1e-5 (both sum in f32 and round once to
     bf16: one ulp apart at most, plus f32 noise).  Calls with at most 8
-    query rows per KV head take the split-K decode kernel, others not."""
+    query rows per KV head take the split-K decode kernel, other bf16 calls
+    the wgmma/TMA prefill kernel and other f32 calls the TF32 one."""
     B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
     g = torch.Generator().manual_seed(Sq * Sk + D)
     q, k, v = (torch.randn(s, generator=g).to(dtype) for s in
@@ -320,10 +324,11 @@ def test_cuda_attention_matches_plain(cuda_device, shape, dtype):
     decode = Sq * Hq // Hkv <= 8
     assert (n1["flash_attention_decode"] - n0["flash_attention_decode"]
             == int(decode))
-    prefill = (dtype == torch.bfloat16 and not decode and D % 64 == 0 and
-               Dv % 64 == 0)
+    bf16 = dtype == torch.bfloat16
     assert (n1["flash_attention_prefill"] - n0["flash_attention_prefill"]
-            == int(prefill))
+            == int(bf16 and not decode))
+    assert (n1["flash_attention_prefill_f32"] -
+            n0["flash_attention_prefill_f32"] == int(not bf16 and not decode))
     want = attention_ref(q, k, v, **kw)
     rtol, atol = (3e-5, 3e-5) if dtype == torch.float32 else (2 ** -6, 1e-5)
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=rtol,
@@ -376,8 +381,18 @@ PREFILL_SHAPES = [
     (1, 4, 1, 100, 100, 64, 64, True, None, -5),     # rows with no key
     (1, 4, 1, 40, 40, 128, 128, True, None, -100),   # no row sees a key
     (1, 2, 1, 100, 90, 64, 64, False, 20, 10),       # not causal, window
-    (1, 2, 1, 66, 66, 192, 192, True, None, 0),      # padded to 256
-    (1, 2, 1, 66, 66, 64, 128, True, None, 0),       # padded to 128
+    (1, 2, 1, 66, 66, 192, 192, True, None, 0),      # (192, 192)
+    (1, 2, 1, 66, 66, 64, 128, True, None, 0),       # run at (128, 128)
+    (1, 2, 1, 40, 40, 192, 96, True, None, 0),       # run at (192, 128)
+    (1, 4, 1, 50, 50, 16, 16, True, None, 0),        # a box wider than D
+    (1, 2, 1, 30, 30, 24, 8, True, None, 0),         # D padded to 32
+    # stablelm-12b's D = 160 at (192, 192): columns past 160 zero-filled
+    (1, 32, 8, 300, 333, 160, 160, True, None, 33),  # Sq and Sk tails, G 4
+    (1, 8, 8, 200, 200, 160, 160, True, 37, 0),      # window, G = 1
+    (1, 14, 2, 70, 500, 160, 160, True, None, 430),  # chunked prefill, G 7
+    (2, 8, 2, 100, 100, 160, 160, True, None, -5),   # rows with no key
+    (1, 4, 1, 40, 40, 160, 160, True, None, -100),   # no row sees a key
+    (1, 4, 1, 100, 90, 160, 160, False, 20, 10),     # not causal, window
 ]
 
 
@@ -394,7 +409,7 @@ def test_cuda_prefill_matches_plain(cuda_device, shape):
     q, k, v = (torch.randn(s, generator=g).bfloat16() for s in
                ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
     kw = dict(causal=causal, window=window, q_offset=qoff)
-    assert fa_ops.prefill_shape(Sq, Hq, Hkv, D, Dv, q.dtype)
+    assert fa_ops.route(Sq, Hq, Hkv, D, Dv, q.dtype) == "flash_prefill"
     n0 = launch_counts()
     got = attention(*(t.to(cuda_device) for t in (q, k, v)), **kw)
     torch.cuda.synchronize()
@@ -439,6 +454,139 @@ def test_cuda_prefill_strided(cuda_device, layer):
                              window=window, q_offset=start)
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [160, 256])
+def test_cuda_prefill_strided_head_dims(cuda_device, D):
+    """stablelm's D = 160 (and 256) from a transposed q projection and one
+    layer of [L, B, Hkv, max_len, D] caches: the TMA maps read the views
+    through their strides with the real D as their column extent, and the
+    output is a contiguous ``[B, Hq, S, D]`` tensor, not a view of a
+    padded one."""
+    L, B, Hkv, G, max_len, S, start = 2, 1, 8, 4, 300, 120, 100
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    ck, cv = (torch.randn(L, B, Hkv, max_len, D, generator=g,
+                          device=cuda_device, dtype=torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn(B, S, Hkv * G, D, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    args = fa_ops.kernel_args(q, ck[1], cv[1], causal=True, window=None,
+                              q_offset=start, scale=None)
+    assert args[0].data_ptr() == q.data_ptr()        # read in place
+    assert args[1].data_ptr() == ck[1].data_ptr()
+    n0 = launch_counts()["flash_attention_prefill"]
+    got = attention(q, ck[1], cv[1], q_offset=start)
+    assert launch_counts()["flash_attention_prefill"] == n0 + 1
+    assert got.shape == (B, Hkv * G, S, D) and got.is_contiguous()
+    want = attention_ref(q.contiguous(), ck[1], cv[1], q_offset=start)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                               atol=1e-5)
+
+
+F32_PREFILL_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_off)
+    (1, 1, 1, 64, 64, 64, 64, False, None, 0),       # one query, one tile
+    (1, 4, 1, 300, 333, 256, 256, True, None, 33),   # Sq and Sk tails, G 4
+    (2, 4, 1, 200, 200, 256, 256, True, 17, 0),      # window < a key tile
+    (1, 4, 1, 500, 500, 256, 256, True, 100, 0),     # window not a multiple
+    (2, 4, 1, 70, 500, 256, 256, True, None, 430),   # chunked prefill
+    (1, 2, 2, 130, 130, 128, 128, True, None, 0),    # G = 1
+    (1, 7, 1, 100, 164, 128, 128, True, None, 64),   # G = 7
+    (1, 16, 2, 90, 90, 64, 64, True, 40, 0),         # G = 8, Hkv = 2
+    (1, 4, 1, 100, 100, 64, 64, True, None, -5),     # rows with no key
+    (1, 4, 1, 40, 40, 128, 128, True, None, -100),   # no row sees a key
+    (1, 2, 1, 100, 90, 64, 64, False, 20, 10),       # not causal, window
+    (1, 4, 4, 33, 33, 16, 16, True, None, 0),        # narrow: (64, 64)
+    (1, 4, 4, 16, 16, 24, 8, True, None, 0),         # Dv != D
+    (1, 2, 1, 66, 66, 160, 160, True, None, 0),      # run at (256, 256)
+    (1, 2, 1, 40, 40, 192, 128, True, None, 0),      # MLA widths
+    # few-row calls just past the decode limit (8 rows per KV head)
+    (1, 4, 1, 3, 300, 256, 256, True, None, 250),    # 12 rows
+    (2, 1, 1, 9, 300, 256, 256, True, 64, 250),      # 9 rows, window
+    (1, 14, 2, 2, 200, 128, 128, True, None, 150),   # 14 rows, G = 7
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F32_PREFILL_SHAPES)
+def test_cuda_prefill_f32_matches_plain(cuda_device, shape):
+    """The TF32 f32 prefill kernel (three TF32 products in each of q·kᵀ and
+    p·v) within the f32 limit of 3e-5 of the plain version; rows that see
+    no key exactly 0.  Only ``flash_attention`` and
+    ``flash_attention_prefill_f32`` count the call."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
+    g = torch.Generator().manual_seed(Sq * Sk + D + Dv)
+    q, k, v = (torch.randn(s, generator=g) for s in
+               ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    assert not fa_ops.decode_shape(Sq, Hq, Hkv, D, Dv)
+    n0 = launch_counts()
+    got = attention(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert {n: n1[n] - n0[n] for n in n0 if n1[n] != n0[n]} == {
+        "flash_attention": 1, "flash_attention_prefill_f32": 1}
+    want = attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-5, atol=3e-5)
+    keyless = ~visible(Sq, Sk, causal=causal, window=window,
+                       q_offset=qoff).any(dim=1)
+    assert torch.all(got.cpu()[:, :, keyless] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 64])
+def test_cuda_prefill_f32_strided(cuda_device, window):
+    """f32 q as a transposed projection and K/V as one layer of
+    [L, B, Hkv, max_len, D] caches from ``q_offset`` 200: read through
+    their strides by the TF32 kernel, within 3e-5 of the plain version."""
+    L, B, Hkv, G, max_len, D, S, start = 3, 2, 2, 4, 400, 256, 150, 200
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    ck, cv = (torch.randn(L, B, Hkv, max_len, D, generator=g,
+                          device=cuda_device) for _ in range(2))
+    q = torch.randn(B, S, Hkv * G, D, generator=g,
+                    device=cuda_device).transpose(1, 2)
+    args = fa_ops.kernel_args(q, ck[2], cv[2], causal=True, window=window,
+                              q_offset=start, scale=None)
+    assert args[0].data_ptr() == q.data_ptr()
+    assert args[1].data_ptr() == ck[2].data_ptr()
+    n0 = launch_counts()["flash_attention_prefill_f32"]
+    got = attention(q, ck[2], cv[2], window=window, q_offset=start)
+    assert launch_counts()["flash_attention_prefill_f32"] == n0 + 1
+    want = attention_ref(q.contiguous(), ck[2], cv[2], window=window,
+                         q_offset=start)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_f32_at_gemma(cuda_device):
+    """gemma3-1b's global prefill in f32 (q [8, 4, 4096, 256], k/v
+    [8, 1, 4128, 256], causal), the shape the smoke's f32 tail check runs:
+    within 3e-5 of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(8, 4, 4096, 256, generator=g, device=cuda_device)
+    k, v = (torch.randn(8, 1, 4128, 256, generator=g, device=cuda_device)
+            for _ in range(2))
+    got = attention(q, k, v)
+    want = attention_ref(q, k, v)
+    assert float((got - want).abs().max()) <= 3e-5
+
+
+@pytest.mark.cuda
+def test_cuda_simt_kernel_matches_plain(cuda_device):
+    """``attention_simt_kernel``, the f32 design before
+    ``flash_prefill_f32.cu``, still matches the plain version within 3e-5
+    through ``ops._attention_simt`` (which counts no launch)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q = torch.randn(2, 4, 100, 256, generator=g, device=cuda_device)
+    k = torch.randn(2, 1, 120, 256, generator=g, device=cuda_device)
+    v = torch.randn(2, 1, 120, 256, generator=g, device=cuda_device)
+    n0 = launch_counts()
+    got = fa_ops._attention_simt(q, k, v, window=40, q_offset=20)
+    assert launch_counts() == n0
+    want = attention_ref(q, k, v, window=40, q_offset=20)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
 
 
 @pytest.mark.cuda
