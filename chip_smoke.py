@@ -36,7 +36,24 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    sub-phase: the sweep launches the chain kernel; the loader launches the
    fused kernel once per degree pass (two a window: the window and its
    horizon) and segment-sum twice per timepoint of each pass;
-4. retrieval kernels: each against its plain PyTorch version on the card,
+4. sharded path, on the same history: a second ``GraphManager`` with 8
+   ``word_cyclic`` storage partitions (the reference's 8-device retrieval
+   mesh); at the main path's 8 fused timepoints
+   ``execute_singlepoint_sharded_torch(partitions=8)``, the ``[8, Wp]``
+   word-cyclic rows as the batch of one chain launch per plane (launch
+   counts zeroed before and read after: exactly 2 a timepoint, batch 8,
+   no other kernel), masks equal to ``replay`` and to the unsharded
+   ``execute_singlepoint_torch``; the host lowering timed apart; the chain
+   kernel at the largest sharded shape bit for bit against its plain
+   version, timed, and each row independent (bits added to one row's adds
+   change that row of the output only); the non-aligned branch
+   (``mod_hash`` at 4 storage partitions, 8 rows) on a churn history
+   against ``replay``; then ``get_snapshots`` at the 8 timepoints through
+   the query service unsharded, through 4 in-thread shard workers and
+   through 2 ``repro_torch.launch.shardd`` processes with 2 replicas each
+   (every child's ``/proc/<pid>/cmdline`` read), one of them SIGKILLed
+   before a last query that must still equal ``replay`` and fail over;
+5. retrieval kernels: each against its plain PyTorch version on the card,
    at full width (chain W = 2^21 words, K = 16, B = 8; fused W = 2^21,
    K = 16 with weights, ``live`` on and off; segment-sum on the degree
    feeds by source and by destination node, the second with hub buckets)
@@ -48,11 +65,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    calls replayed between CUDA events, beside the same calls in a host
    loop (``host_loop_ms``: adds the wrapper's host work); plain and bound
    times;
-5. churn: a ``churn_network`` history with deletes and transient slots,
+6. churn: a ``churn_network`` history with deletes and transient slots,
    monolithic and streamed (``DeviceStager``) retrieval and fused
    analytics, and ``evolve_intervals_torch`` (monolithic and streamed) and
    a ``SnapshotBatchLoader`` window, against ``replay``;
-6. LM serving: gemma3-1b at full width and depth (26 layers, d 1152,
+7. LM serving: gemma3-1b at full width and depth (26 layers, d 1152,
    vocab 262,144, bf16, seeded random weights) through
    ``repro_torch.launch.serve.serve_lm``: batch 8, a 4,096-token prompt,
    32 greedy decode steps (the repo's ``prefill_32k`` / ``decode_32k``
@@ -143,6 +160,9 @@ ST_ARCH, ST_BATCH, ST_PROMPT, ST_GEN = "stablelm-12b", 1, 4096, 16
 # bucket_edges (twice per timepoint and pass, about 0.2 s a call at this
 # edge count) makes windows the costliest part of the phase.
 EVOLVE_INTERVALS, EVOLVE_POINTS, CHECK_EVERY, LOADER_BATCH = 8, 32, 4, 8
+# sharded path: 8 word_cyclic storage partitions, as the reference's
+# 8-device retrieval mesh, laid out as 8 rows of one batched chain launch
+SHARD_PARTITIONS = 8
 
 
 def fail(msg: str) -> None:
@@ -483,6 +503,177 @@ def evolve_phase(gm, ev, dev) -> dict:
     return {name: {"evolve_intervals_torch": sweep_launches[name],
                    "loader_window": lw["launches"][name]}
             for name in RETRIEVAL_KERNELS}
+
+
+def sharded_phase(uni, ev, gm, times, dev) -> dict:
+    """Sharded retrieval on the main history (phase 4): the word-cyclic
+    ``[P, Wp]`` layout on the card, the non-aligned branch on a churn
+    history, and host sharded retrieval through in-thread shard workers and
+    ``repro_torch.launch.shardd`` processes.  Returns the chain kernel's
+    readings at the sharded shape for the kernels' record."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import DeltaGraph, GraphManager, replay
+    from repro_torch.data.generators import churn_network
+    from repro_torch.kernels.delta_apply.ref import delta_apply_chain_ref
+    from repro_torch.runtime import torch_exec
+    from repro_torch.storage.kv import MemKV
+
+    P = SHARD_PARTITIONS
+    os.environ["REPRO_SHARDD_POOL"] = "0"    # close() reaps every shardd
+    t0 = time.perf_counter()
+    gm8 = GraphManager(uni, ev, store=MemKV(), L=50_000, k=4,
+                       diff_fn="intersection", num_partitions=P,
+                       partition_fn="word_cyclic", cache_bytes=0, device=dev)
+    t_index = time.perf_counter() - t0
+    truth = {t: replay(uni, ev, t) for t in times}
+    flat = {t: torch_exec.execute_singlepoint_torch(gm.dg, t, device=dev)
+            for t in times}
+
+    # the device path: one batched chain launch per plane, P rows as the
+    # batch; the spy keeps the inputs of the largest call for the kernel
+    seen = []
+    orig_chain = torch_exec.delta_apply_chain_batched
+
+    def rec_chain(b, a, d):
+        seen.append((b, a, d))
+        return orig_chain(b, a, d)
+
+    torch_exec.delta_apply_chain_batched = rec_chain
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = {t: torch_exec.execute_singlepoint_sharded_torch(
+            gm8.dg, t, partitions=P, device=dev) for t in times}
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        torch_exec.delta_apply_chain_batched = orig_chain
+    check(launches["delta_apply_chain"] == 2 * len(times) == len(seen),
+          f"sharded: {launches['delta_apply_chain']} chain launches for "
+          f"{len(times)} timepoints (2 expected per timepoint)")
+    check(all(a.shape[0] == P for _, a, _ in seen),
+          f"sharded: chain batches {[tuple(a.shape) for _, a, _ in seen]}")
+    check(sum(launches.values()) == launches["delta_apply_chain"],
+          f"sharded: other kernels launched {json.dumps(launches)}")
+    for t in times:
+        for i, plane in enumerate(("node", "edge")):
+            want = (truth[t].node_mask, truth[t].edge_mask)[i]
+            check(np.array_equal(got[t][i], want),
+                  f"sharded: {plane} mask differs from replay at t={t}")
+            check(np.array_equal(got[t][i], flat[t][i]),
+                  f"sharded: {plane} mask differs from the unsharded "
+                  f"path at t={t}")
+    # host lowering alone (plan, per-partition fetches, packing, staging)
+    t0 = time.perf_counter()
+    for t in times:
+        torch_exec.lower_singlepoint_sharded(gm8.dg, t, partitions=P,
+                                             device=dev)
+    torch.cuda.synchronize()
+    t_lower = time.perf_counter() - t0
+
+    # the kernel at the largest shape the path gave it: against its plain
+    # version bit for bit, timed, and its rows independent
+    base, adds, dels = max(seen, key=lambda x: x[1].numel())
+    _, K, Wp = adds.shape
+    out = kernels.delta_apply_chain_batched(base, adds, dels)
+    want = delta_apply_chain_ref(base, adds, dels)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "sharded: chain kernel differs from its "
+          "plain version on the captured inputs")
+    rows = [r for r in range(P) if bool((out[r] != -1).any())]
+    check(bool(rows), "sharded: every row all ones, nothing to flip")
+    for row in rows:
+        flipped = adds.clone()
+        flipped[row, -1] |= ~out[row]          # add every bit it lacks
+        changed = (kernels.delta_apply_chain_batched(base, flipped, dels)
+                   != out).any(dim=1)
+        check(bool(changed[row]) and int(changed.sum()) == 1,
+              f"sharded: flipping row {row} changed rows "
+              f"{changed.nonzero().flatten().tolist()}")
+    ms = graph_ms(lambda: kernels.delta_apply_chain_batched(base, adds, dels),
+                  200)
+    loop_ms = cuda_ms(lambda: kernels.delta_apply_chain_batched(
+        base, adds, dels), 200)
+    plain = cuda_ms(lambda: delta_apply_chain_ref(base, adds, dels), 5)
+    nbytes, ops = P * (2 * K + 2) * Wp * 4.0, P * K * Wp * 3.0
+    b_ms, b_by = bound_ms(nbytes, ops)
+    device = {"launches": launches["delta_apply_chain"],
+              "shape": f"B=P={P} K={K} Wp={Wp}", "ms": ms,
+              "host_loop_ms": loop_ms, "plain_ms": plain, "bound_ms": b_ms,
+              "bound_by": b_by, "max_abs_err": max_abs_err(out, want),
+              "rows_checked_independent": len(rows)}
+    print(f"sharded: {P} word_cyclic partitions, index {t_index:.3f} s; "
+          f"{len(times)} timepoints {t_path:.3f} s wall, host lowering "
+          f"{t_lower:.3f} s, {2 * len(times)} chain launches of about "
+          f"{ms:.5f} ms device time each; masks equal replay and the "
+          f"unsharded path; {json.dumps(device)}")
+
+    # the non-aligned branch: mod_hash storage partitions, P compute rows
+    cuni, cev = churn_network(n_initial_edges=2000, n_events=50_000, seed=1)
+    cdg = DeltaGraph(cuni, MemKV(), L=2_000, k=2, num_partitions=4,
+                     partition_fn="mod_hash").build(cev)
+    ctimes = sorted({int(t) for t in np.linspace(0, int(cev.time[-1]) + 3,
+                                                 8)})
+    kernels.reset_launch_counts()
+    for t in ctimes:
+        nm, em = torch_exec.execute_singlepoint_sharded_torch(
+            cdg, t, partitions=P, device=dev)
+        ctruth = replay(cuni, cev, t)
+        check(np.array_equal(nm, ctruth.node_mask) and
+              np.array_equal(em, ctruth.edge_mask),
+              f"sharded: mod_hash P=4 at {P} rows differs from replay at "
+              f"t={t}")
+    check(kernels.launch_counts()["delta_apply_chain"] == 2 * len(ctimes),
+          "sharded: the non-aligned branch missed the chain kernel")
+
+    # host sharded retrieval through the query service
+    def query(label):
+        t0 = time.perf_counter()
+        snaps = gm8.get_snapshots(times)
+        wall = time.perf_counter() - t0
+        for t in times:
+            check(np.array_equal(snaps[t].node_mask, truth[t].node_mask) and
+                  np.array_equal(snaps[t].edge_mask, truth[t].edge_mask),
+                  f"sharded: {label} get_snapshots differs from replay at "
+                  f"t={t}")
+        return wall
+
+    try:
+        host = {"unsharded_s": query("unsharded")}
+        gm8.enable_sharding(4)
+        host["thread_s"] = query("thread transport")
+        host["thread_shards"] = gm8.sharded.last_stats["shards"]
+        # no health probe and no hedge: the query after the kill finds
+        # the corpse on its fetch and fails over to the other replica
+        sr = gm8.enable_sharding(2, transport="proc", replicas=2,
+                                 max_hedges=0, health_interval_s=1e9)
+        for name in sr.transport.servers():
+            pid = int(sr.transport.health(name)["pid"])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode().split("\0")
+            check("repro_torch.launch.shardd" in argv and
+                  "repro.launch.shardd" not in argv,
+                  f"sharded: shard process {pid} runs {argv}")
+        host["proc_s"] = query("proc transport")
+        victim = next(iter(sr.assignment(gm8.dg.P)))
+        killed = sr.transport.kill(victim)
+        host["proc_after_kill_s"] = query("proc transport after a kill")
+        host["failovers"] = sr.failovers_total
+        check(sr.failovers_total >= 1, "sharded: no failover after the kill")
+        check(victim not in sr.alive_workers(), "sharded: the killed shard "
+              "still reads alive")
+    finally:
+        gm8.close()          # stops the shard processes
+    print(f"sharded: host get_snapshots of {len(times)} timepoints (s per "
+          f"query): {json.dumps(host)}; killed shardd pid {killed}; "
+          f"mod_hash P=4 at {P} rows over {len(ctimes)} churn timepoints "
+          f"agrees with replay")
+    return device
 
 
 def served_shapes(rand, sdpa_call) -> dict[str, dict]:
@@ -1207,6 +1398,9 @@ def main() -> int:
     # ----------------------------------------------------------- evolve path
     evolve_launches = evolve_phase(gm, ev, dev)
 
+    # ---------------------------------------------------------- sharded path
+    sharded = sharded_phase(uni, ev, gm, fused_times, dev)
+
     # --------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1307,6 +1501,7 @@ def main() -> int:
     record.append(entry(
         "delta_apply_chain", da_src, f"{da_tpu}:45", t["ms"], plain, err, nb,
         ops, host_loop_ms=t["host_loop_ms"], shape="B=8 K=16 W=2^21",
+        sharded_path=sharded,
         at_main_path_shape={
             "shape": f"B={cB} K={cK} W={cW}", **m_t, "plain_ms": m_plain,
             "bound_ms": bound_ms(m_nb, m_ops)[0], "max_abs_err": m_err}))

@@ -12,9 +12,9 @@ The manager takes ``device=`` (default ``"cuda"``; a missing card raises
 unless the caller passes ``"cpu"``) and hands it to the temporal engine:
 its fixpoint operators and :class:`~repro_torch.core.temporal
 .SnapshotBatchLoader` run there.  Snapshot retrieval through the query
-service stays on the host, as in the reference.  Sharded retrieval is not
-ported yet (``ROADMAP.md`` §1 item 4): ``num_partitions > 1`` and
-:meth:`GraphManager.enable_sharding` raise ``NotImplementedError``.
+service stays on the host, as in the reference, and so does sharded
+retrieval (:meth:`GraphManager.enable_sharding`: shard servers in threads
+or ``repro_torch.launch.shardd`` processes, replicas, hedged fetches).
 """
 from __future__ import annotations
 
@@ -138,8 +138,6 @@ class GraphManager:
                  cache_bytes: int = 32 << 20,
                  cache_entries: int = 256,
                  prefetch_workers: int = 4, device="cuda") -> None:
-        if num_partitions > 1:
-            _no_sharding()
         device = resolve_device(device)
         # default store honors REPRO_KV (mem | logfile | tiered) so every
         # entry point can run disk-resident without code changes; stores we
@@ -208,8 +206,8 @@ class GraphManager:
             self.prefetcher = None
         self._temporal = None
         self._query_service = None
-        # sharded multi-worker retrieval: not ported yet (enable_sharding
-        # raises), so always None
+        # sharded multi-worker retrieval (runtime/shard.py); off by default,
+        # enabled via enable_sharding() / serve.py --shards N
         self.sharded = None
         # concurrent retrievals are supported (cache and workload counters
         # are internally locked); advisor *replans* mutate the pool and the
@@ -407,11 +405,39 @@ class GraphManager:
                         *, transport: "Any" = None,
                         replicas: int | None = None,
                         **kwargs) -> "Any":
-        """Sharded multi-worker retrieval, the reference's
-        ``ShardedRetriever`` (shard processes, replicas, hedged fetches):
-        not ported yet, so this raises ``NotImplementedError``
-        (``ROADMAP.md`` §1 item 4)."""
-        _no_sharding()
+        """Turn on sharded multi-worker retrieval
+        (:class:`~repro_torch.runtime.shard.ShardedRetriever`): every cache-miss
+        retrieval through the query service scatters its plan across a
+        fleet of shard servers (partitions assigned by rendezvous hashing)
+        and gathers the per-shard slot results.  ``workers`` defaults to
+        one worker per storage partition.  Results stay bit-identical to
+        unsharded execution.
+
+        ``transport`` selects how shard fetches move bytes: ``"thread"``
+        (default — the legacy in-process pool), ``"proc"`` (one
+        ``launch/shardd`` OS process per worker with epoch-invalidated
+        shard-local caches), or a ready :class:`~repro_torch.runtime.shard
+        .ShardTransport` instance (tests inject instrumented ones).
+        ``replicas`` is the candidate-server count per partition —
+        hedges/failover then route to distinct replicas.  Both default
+        from the environment (``REPRO_SHARD_TRANSPORT``,
+        ``REPRO_REPLICAS``) so the differential CI suite can re-run the
+        whole tier-1 battery over the process transport unchanged.
+        Re-enabling replaces the previous retriever; extra kwargs go to
+        the retriever (hedging/retry policy)."""
+        import os
+
+        from ..runtime.shard import ShardedRetriever
+        self.disable_sharding()
+        if workers is None:
+            workers = max(1, self.dg.P)
+        if transport is None:
+            transport = os.environ.get("REPRO_SHARD_TRANSPORT") or None
+        if replicas is None:
+            replicas = int(os.environ.get("REPRO_REPLICAS", "1"))
+        self.sharded = ShardedRetriever(self, workers, transport=transport,
+                                        replicas=replicas, **kwargs)
+        return self.sharded
 
     def disable_sharding(self) -> None:
         if self.sharded is not None:
@@ -486,9 +512,3 @@ class GraphManager:
         return [self.dg.materialize(nid, self.pool)
                 for nid in self.dg.leaf_nids
                 if self.dg.nodes[nid].materialized_as is None]
-
-
-def _no_sharding():
-    raise NotImplementedError(
-        "sharded retrieval (num_partitions > 1, enable_sharding) is not "
-        "ported yet: ROADMAP.md section 1, item 4")

@@ -1,1 +1,3 @@
-"""Entry points of the port: LM serving (``serve``)."""
+"""Entry points of the port: ``serve`` (LM serving, evolutionary queries
+and the retrieval front ends), the query server (``server``) and the
+per-shard daemon (``shardd``)."""

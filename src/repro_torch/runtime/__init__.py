@@ -1,2 +1,3 @@
-"""Execution backends: the host plan-IR executor, host-to-device staging
-and the torch bitmap executor."""
+"""Execution backends: the host plan-IR executor, host-to-device staging,
+the torch bitmap executor (with its sharded layout), and sharded host
+retrieval with its fault, replica and RPC layers."""

@@ -10,7 +10,12 @@ module replaces the *apply* phase with device work:
    delta-apply kernels in **one pass** over the bitmap (K+2 instead of 3K
    words of device-memory traffic), optionally with the analytics fused in;
 3. a multipoint plan runs wave by wave, all sibling branches of a wave in
-   one batched chain launch, and can land its results in ``GraphPool``.
+   one batched chain launch, and can land its results in ``GraphPool``;
+4. sharded retrieval lays each bitmap out word-cyclically as ``[P, Wp]``
+   (word ``w`` at row ``w % P``, column ``w // P``) and lands all P rows
+   as the batch of one chain launch per plane: the rows never exchange a
+   word, as the reference's ``shard_map`` over P devices never issues a
+   collective.
 
 Every entry point takes ``device=`` (default ``"cuda"``): CUDA tensors go
 through the hand-written kernels, ``device="cpu"`` through their plain
@@ -86,30 +91,32 @@ def _recent_pair(dg: DeltaGraph, forward: bool, rng) -> tuple[np.ndarray, ...]:
     return na, nd, ea, ed
 
 
+def _plan_base(dg: DeltaGraph, plan: Plan, pool
+               ) -> tuple[tuple[np.ndarray, np.ndarray], list[tuple]]:
+    """A singlepoint plan's source: its base bitmaps, and the recent
+    events as a first chain step when it starts from the current graph."""
+    assert len(plan.targets) == 1, "use per-branch lowering for multipoint"
+    src = plan.steps[0]
+    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+    if src.action[0] == "empty":
+        return (np.zeros(bmod.num_words(U_n), np.uint32),
+                np.zeros(bmod.num_words(U_e), np.uint32)), []
+    if src.action[0] == "mat":
+        base_n, base_e = pool._resolve_masks(src.action[1])
+        return (_fit_words(base_n, bmod.num_words(U_n)),
+                _fit_words(base_e, bmod.num_words(U_e))), []
+    if src.action[0] == "current":
+        st = dg._last_leaf_state.resized(dg.universe)
+        return ((bmod.np_pack(st.node_mask), bmod.np_pack(st.edge_mask)),
+                [_recent_pair(dg, True, None)])
+    raise ValueError(src.action)  # pragma: no cover
+
+
 def plan_to_chain(dg: DeltaGraph, plan: Plan, pool=None
                   ) -> tuple[tuple[np.ndarray, np.ndarray], list[tuple]]:
     """Lower a *singlepoint* plan into (base bitmaps, [(na,nd,ea,ed), ...])."""
-    assert len(plan.targets) == 1, "use per-branch lowering for multipoint"
-    steps = plan.steps
-    src = steps[0]
-    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
-    if src.action[0] == "empty":
-        base_n = np.zeros(bmod.num_words(U_n), np.uint32)
-        base_e = np.zeros(bmod.num_words(U_e), np.uint32)
-    elif src.action[0] == "mat":
-        base_n, base_e = pool._resolve_masks(src.action[1])
-        base_n = _fit_words(base_n, bmod.num_words(U_n))
-        base_e = _fit_words(base_e, bmod.num_words(U_e))
-    elif src.action[0] == "current":
-        st = dg._last_leaf_state.resized(dg.universe)
-        base_n = bmod.np_pack(st.node_mask)
-        base_e = bmod.np_pack(st.edge_mask)
-        na, nd, ea, ed = _recent_pair(dg, True, None)
-        chain0 = [(na, nd, ea, ed)]
-    else:  # pragma: no cover
-        raise ValueError(src.action)
-    chain: list[tuple] = [] if src.action[0] != "current" else chain0
-    for st in steps[1:]:
+    (base_n, base_e), chain = _plan_base(dg, plan, pool)
+    for st in plan.steps[1:]:
         kind = st.action[0]
         if kind == "delta":
             d = dg._fetch_delta(st.action[1], NO_ATTRS)
@@ -614,3 +621,180 @@ def evolve_intervals_torch(dg: DeltaGraph, intervals, *, device="cuda",
             em &= ~dg.universe.edge_transient[:U_e]
             out[b][t] = (nm, em)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sharded device layout: the word-cyclic [P, Wp] rows as the batch
+# ---------------------------------------------------------------------------
+
+def _to_sharded_layout(idx: np.ndarray, Pn: int
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Slot → (partition row, local bit) under word_cyclic: word w lives at
+    row ``w % P``, column ``w // P``; the local flat bit index is
+    ``(w // P) * 32 + (slot & 31)``."""
+    w = idx >> 5
+    return (w % Pn).astype(np.int64), ((w // Pn) * 32 + (idx & 31)).astype(np.int64)
+
+
+def _scatter_rows(out_pw: np.ndarray, ix, Pn: int) -> None:
+    """OR slot indices spanning every partition into a ``[P, Wp]`` plane."""
+    ix = np.asarray(ix, np.int64)
+    if ix.size == 0:
+        return
+    row, lbit = _to_sharded_layout(ix, Pn)
+    np.bitwise_or.at(out_pw, (row, lbit >> 5),
+                     np.uint32(1) << (lbit & 31).astype(np.uint32))
+
+
+def _stack_sharded(chain_idx: list[np.ndarray], U: int, Pn: int) -> np.ndarray:
+    """K slot-index sets → ``[P, K, Wp]`` packed words: the reference's
+    ``[K, P, Wp]`` stack with the partition axis first, so that the P rows
+    are the chain kernel's contiguous batch."""
+    Wp = -(-bmod.num_words(U) // Pn)
+    out = np.zeros((Pn, len(chain_idx), Wp), np.uint32)
+    for k, ix in enumerate(chain_idx):
+        _scatter_rows(out[:, k], ix, Pn)
+    return out
+
+
+def sharded_base(words: torch.Tensor, Pn: int) -> torch.Tensor:
+    """Re-lay a packed bitmap ``[W]`` into the ``[P, Wp]`` word-cyclic
+    layout: the words padded to ``P·Wp``, viewed ``[Wp, P]`` and
+    transposed (a view, not contiguous)."""
+    W = words.shape[0]
+    Wp = -(-W // Pn)
+    padded = words.new_zeros(Pn * Wp)
+    padded[:W] = words
+    return padded.view(Wp, Pn).t()
+
+
+def unshard(words_pw: torch.Tensor, W: int) -> torch.Tensor:
+    """The ``[P, Wp]`` word-cyclic layout back to a packed bitmap ``[W]``."""
+    return words_pw.t().reshape(-1)[:W]
+
+
+def _scatter_row(out_kp: np.ndarray, ix: np.ndarray, Pn: int) -> None:
+    """OR slot indices into one partition row [Wp] of the word_cyclic
+    layout (the caller guarantees every slot belongs to that row)."""
+    ix = np.asarray(ix, np.int64)
+    if ix.size == 0:
+        return
+    lbit = ((ix >> 5) // Pn) * 32 + (ix & 31)
+    np.bitwise_or.at(out_kp, lbit >> 5,
+                     np.uint32(1) << (lbit & 31).astype(np.uint32))
+
+
+def plan_to_chain_sharded(dg: DeltaGraph, plan: Plan, Pn: int, pool=None
+                          ) -> tuple[tuple[np.ndarray, np.ndarray],
+                                     tuple[np.ndarray, ...]]:
+    """Lower a *singlepoint* plan into base bitmaps plus per-partition
+    ``[P, K, Wp]`` add/del stacks (node adds, node dels, edge adds, edge
+    dels), fetching each storage partition's sub-payloads **separately** —
+    the fetch pattern of the aligned deployment, where partition ``p``
+    pulls only its own keys from the store and fills exactly its own
+    layout row.
+
+    Requires ``dg.P == Pn`` under the ``word_cyclic`` partitioner, so a
+    delta/eventlist sub-payload's slots land entirely in row ``p``.
+    In-memory steps (recent events, which are not yet partitioned into
+    storage) carry slots from every partition and are scattered across
+    rows like the dense path does."""
+    if dg.P != Pn or dg.partition_fn_name != "word_cyclic":
+        raise ValueError(
+            f"aligned sharded lowering needs dg.P == {Pn} storage "
+            f"partitions under word_cyclic; have P={dg.P} "
+            f"fn={dg.partition_fn_name}")
+    (base_n, base_e), full = _plan_base(dg, plan, pool)
+    entries: list[tuple[str, Any]] = [("full", pair) for pair in full]
+    for st in plan.steps[1:]:
+        kind = st.action[0]
+        if kind == "delta":
+            per = []
+            for p in range(Pn):
+                d = dg._fetch_delta(st.action[1], NO_ATTRS, parts=(p,))
+                if st.action[2]:
+                    per.append((d.node_add, d.node_del,
+                                d.edge_add, d.edge_del))
+                else:
+                    per.append((d.node_del, d.node_add,
+                                d.edge_del, d.edge_add))
+            entries.append(("parts", per))
+        elif kind == "elist":
+            per = []
+            for p in range(Pn):
+                comps = dg._fetch_elist(st.action[1], NO_ATTRS,
+                                        parts=(p,))
+                per.append(_elist_pair(comps, st.action[2], st.action[3])
+                           if col.ELIST_STRUCT in comps else _EMPTY_PAIR)
+            entries.append(("parts", per))
+        elif kind == "recent":
+            entries.append(("full", _recent_pair(dg, st.action[2],
+                                                 st.action[3])))
+        elif kind == "noop":
+            pass
+        else:  # pragma: no cover
+            raise ValueError(st.action)
+    K = len(entries)
+    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+    stacks = tuple(np.zeros((Pn, K, -(-bmod.num_words(U) // Pn)), np.uint32)
+                   for U in (U_n, U_n, U_e, U_e))
+    for k, (tag, data) in enumerate(entries):
+        if tag == "parts":
+            for p, pair in enumerate(data):
+                for st_arr, ix in zip(stacks, pair):
+                    _scatter_row(st_arr[p, k], ix, Pn)
+        else:  # full-state step: slots span partitions
+            for st_arr, ix in zip(stacks, data):
+                _scatter_rows(st_arr[:, k], ix, Pn)
+    return (base_n, base_e), stacks
+
+
+def lower_singlepoint_sharded(dg: DeltaGraph, t: int, *, partitions: int,
+                              device="cuda", pool=None,
+                              use_current: bool = True) -> list[tuple]:
+    """The host half of sharded retrieval: plan, lower and stage.  Returns
+    one ``(base [P, Wp], adds [P, K, Wp], dels [P, K, Wp], U)`` per plane
+    (nodes, edges), the words on ``device``.
+
+    With ``dg.P == partitions`` under ``word_cyclic`` (the aligned
+    deployment) every partition's sub-payloads are fetched separately and
+    fill exactly their own row; otherwise the dense chain is re-laid into
+    the sharded layout."""
+    dev = resolve_device(device)
+    Pn = int(partitions)
+    if Pn < 1:
+        raise ValueError(f"partitions must be >= 1, got {partitions}")
+    plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
+    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+    if dg.P == Pn and dg.partition_fn_name == "word_cyclic":
+        (base_n, base_e), stacks = plan_to_chain_sharded(dg, plan, Pn, pool)
+    else:
+        (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
+        stacks = tuple(_stack_sharded([c[i] for c in chain], U, Pn)
+                       for i, U in enumerate((U_n, U_n, U_e, U_e)))
+    an, dn, ae, de = (_to_device(a, dev) for a in stacks)
+    return [(sharded_base(_to_device(base, dev), Pn).contiguous(), a, d, U)
+            for base, a, d, U in ((base_n, an, dn, U_n),
+                                  (base_e, ae, de, U_e))]
+
+
+def execute_singlepoint_sharded_torch(dg: DeltaGraph, t: int, *,
+                                      partitions: int, device="cuda",
+                                      pool=None, use_current: bool = True
+                                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Sharded retrieval on one device: ``partitions`` word-cyclic rows
+    land as the batch of one ``delta_apply_chain_batched`` launch per
+    plane (the reference's ``execute_singlepoint_sharded`` runs one row
+    per device of a mesh).  Returns (node_mask, edge_mask) bool arrays,
+    bit-identical to :func:`execute_singlepoint_torch`."""
+    outs = []
+    for base, adds, dels, U in lower_singlepoint_sharded(
+            dg, t, partitions=partitions, device=device, pool=pool,
+            use_current=use_current):
+        out = delta_apply_chain_batched(base, adds, dels)
+        words = bmod.to_numpy_words(unshard(out, bmod.num_words(U)))
+        outs.append(bmod.np_unpack(words, U))
+    nm, em = outs
+    em &= ~dg.universe.edge_transient[:em.size]
+    nm &= ~dg.universe.node_transient[:nm.size]
+    return nm, em

@@ -18,7 +18,9 @@ kernel on the same cases and on few-row calls just past the decode limit,
 the old kernels of ``flash_attention.cu`` (kept as yardsticks) at
 gemma3-1b widths, and a reduced LM on the card; for the temporal engine,
 ``evolve_intervals_torch`` (monolithic and streamed), the batch loader
-and both fixpoint solvers on the card against the port's own CPU runs.
+and both fixpoint solvers on the card against the port's own CPU runs;
+for sharded retrieval, the word-cyclic ``[P, K, Wp]`` stacks through the
+chain kernel (two launches a timepoint) against the CPU path.
 This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -275,6 +277,35 @@ def test_cuda_retrieval_matches_cpu(cuda_device, monkeypatch, chunk):
     assert np.array_equal(em, cem) and np.array_equal(nm, cnm)
     _assert_fused_equal(an.edge, can.edge)
     assert np.array_equal(an.degrees(), can.degrees())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,P,partitions", [("word_cyclic", 8, 8),
+                                             ("mod_hash", 4, 8),
+                                             ("word_cyclic", 3, 3)])
+def test_cuda_sharded_retrieval_matches_cpu(cuda_device, fn, P, partitions):
+    """Sharded retrieval on the card: two chain launches a timepoint, the
+    P rows as the batch, masks equal to the CPU path's, and the kernel
+    equal to its plain version on the lowered stacks."""
+    uni, ev = churn_network(n_initial_edges=150, n_events=1200, seed=1)
+    dg = DeltaGraph(uni, MemKV(), L=100, k=2, num_partitions=P,
+                    partition_fn=fn).build(ev)
+    tmax = int(ev.time[-1])
+    for t in (0, tmax // 3, tmax):
+        before = launch_counts()["delta_apply_chain"]
+        got = torch_exec.execute_singlepoint_sharded_torch(
+            dg, t, partitions=partitions)
+        assert launch_counts()["delta_apply_chain"] == before + 2
+        want = torch_exec.execute_singlepoint_sharded_torch(
+            dg, t, partitions=partitions, device="cpu")
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    for base, adds, dels, U in torch_exec.lower_singlepoint_sharded(
+            dg, tmax // 2, partitions=partitions, device=cuda_device):
+        assert adds.shape[0] == partitions and adds.is_cuda
+        out = delta_apply_chain_batched(base, adds, dels)
+        ref = delta_apply_chain_ref(base.cpu(), adds.cpu(), dels.cpu())
+        assert torch.equal(out.cpu(), ref)
 
 
 ATTN_SHAPES = [

@@ -374,16 +374,6 @@ def test_manager_and_loader_default_to_the_card(no_card):
     gm.close()
 
 
-def test_sharding_is_not_ported():
-    uni, ev = random_history(60, 0, max_time_step=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        GraphManager(uni, ev, L=16, k=2, num_partitions=2, device=CPU)
-    gm = GraphManager(uni, ev, L=16, k=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        gm.enable_sharding(2)
-    gm.close()
-
-
 def test_serve_evolve_defaults_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.serve_evolve(400, 1, 4, "pagerank")
