@@ -8,7 +8,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 1. set-up: the card's name and power limit; every CUDA kernel built from
    ``src/repro_torch/kernels/csrc`` with one ``nvcc`` per source, all at
    once, and ptxas's registers, spills and shared memory for the two
-   prefill kernels, the fused and the segment-sum kernels;
+   prefill kernels, the MLA kernel, the fused and the segment-sum kernels;
 2. retrieval path: a ``growing_network(2_000_000)`` history (the
    generator's analogue of the paper's Dataset 1) indexed by a
    ``GraphManager`` (``L=50_000, k=4, diff_fn="intersection"``, no snapshot
@@ -114,7 +114,30 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    against its plain version at stablelm's decode shape (q [1, 32, 1,
    160] on the ``max_len`` cache; 2e-2 and two ulps), then ``serve_lm``
    timed, every prefill attention call through ``flash_prefill.cu`` (40
-   per forward) and none through ``flash_attention.cu``.
+   per forward) and none through ``flash_attention.cu``;
+8. MLA and MoE serving: deepseek-v3 at full width (d 7168, 128 heads,
+   MLA 1536/512/128/64/128, 256 routed experts of 2048 + 1 shared, top-8,
+   ``sigmoid_aux_free``, capacity 1.25, vocab 129,280, bf16, seeded random
+   weights) cut to 3 layers (1 dense + 2 MoE), ``mtp`` off: batch 8, a
+   4,096-token prompt, 32 decode steps; then arctic at full width (d 7168,
+   56:8 heads of 128, dense 4,864 ∥ 128 experts of 4,864, top-2) cut to 2
+   layers: batch 8, a 2,048-token prompt, 8 decode steps; each model's
+   weights freed before the next.  For each, the tail drift (16 steps) on a
+   no-drop variant (``capacity_factor = E / K``, batch 1, a 256-token
+   prompt): deepseek-v3 within 1.5 times the plain attention's drift in
+   the same run, arctic within the reference's 5e-2; the published
+   capacity's drift printed.  ``serve_lm`` timed (prefill ms, decode ms a
+   step, peak device memory), launch counts zeroed before and read after:
+   every prefill attention call through ``flash_prefill.cu`` (deepseek's
+   MLA prefill at its (192, 128) instantiation), every decode call
+   through ``flash_mla.cu`` (deepseek: 3 a step) or ``flash_decode.cu``
+   (arctic: 2 a step), none through ``flash_attention.cu``.  Then the MLA
+   kernel against its plain version at the served decode shape (q [8,
+   128, 1, 576], k [8, 1, 4128, 576], v its first 512 columns, q_offset
+   4,100; 2e-2 and two bf16 ulps, which the kernel without its last key
+   tile must fail), timed beside the plain version and SDPA; and the MLA
+   prefill shape (q/k [8, 128, 4096, 192]) through ``flash_prefill.cu``
+   against the plain version on 4 of its heads.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -154,6 +177,19 @@ LM_CUT_LAYERS, DRIFT_OVER_PLAIN = 6, 1.5
 # stablelm-12b at full width and depth (40 layers, 32:8 heads of 160: the
 # bf16 prefill kernel's (192, 192) instantiation), batch 1, uncut
 ST_ARCH, ST_BATCH, ST_PROMPT, ST_GEN = "stablelm-12b", 1, 4096, 16
+# deepseek-v3 and arctic at full width (their published configs), at a
+# depth one card holds: deepseek 1 dense + 2 MoE layers (25.5 G parameters,
+# 51 GB in bf16; a third MoE layer would be 73 GB), mtp off (only training
+# runs it), batch 8 x a 4,096-token prompt, 32 decode steps; arctic 2
+# layers (27.7 G, 55 GB), batch 8 x 2,048, 8 decode steps.  Their tail
+# drift on a no-drop variant (capacity_factor E / K): batch 1, a 256-token
+# prompt, 16 tail steps.  At the published capacity 1.25 a decode step of
+# B = 8 gets C = 1 slot an expert, so prefill and decode drop different
+# assignments and the drift there is printed, not held.
+DS_ARCH, DS_LAYERS, DS_DENSE = "deepseek-v3-671b", 3, 1
+DS_BATCH, DS_PROMPT, DS_GEN = 8, 4096, 32
+AR_ARCH, AR_LAYERS, AR_BATCH, AR_PROMPT, AR_GEN = "arctic-480b", 2, 8, 2048, 8
+DRIFT_PROMPT = 256
 # evolve path: serve --mode evolve's default workload, 8 intervals of 32
 # points over 5 % of the history each; the recompute engine and the checks
 # run at every 4th point.  One loader window of 8 points: its host
@@ -1249,6 +1285,280 @@ def lm_phase(dev) -> list[dict]:
     return recs
 
 
+def mla_decode_check(q, k, Dv: int, off: int, scale: float) -> dict:
+    """The MLA kernel at an absorbed-decode shape (v the first Dv columns
+    of k, as the model passes it) against the plain version: 2e-2 and two
+    bf16 ulps, which the kernel run without its last visible key tile must
+    fail; its device time (CUDA-graph replay), host loop, the plain
+    version's time, SDPA's (the KV head broadcast by ``enable_gqa``) where
+    a backend takes D = 576 with Dv = 512, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import attention, attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kw = dict(causal=True, window=None, q_offset=off, scale=scale)
+    v = k[..., :Dv]
+    n0 = kernels.launch_counts()
+    got = attention(q, k, v, **kw)
+    n1 = kernels.launch_counts()
+    moved = {n: n1[n] - n0[n] for n in n1 if n1[n] != n0[n]}
+    check(moved == {"flash_attention": 1, "flash_attention_mla": 1},
+          f"MLA decode ran {moved}, not flash_attention_mla alone")
+    want = attention_ref(q, k, v, **kw)
+    pairs, lo, hi = visible_span(Sq, Sk, None, off)
+    kd = k[:, :, :hi - 32]
+    wrong = attention(q, kd, kd[..., :Dv], **kw)
+    torch.cuda.synchronize()
+    err, ratio = max_abs_err(got.float(), want.float()), over_bf16_limit(
+        got, want)
+    wrong_ratio = over_bf16_limit(wrong, want)
+    check(err <= 2e-2 and ratio <= 1.0, f"flash_mla differs from plain: max "
+          f"abs {err}, {ratio} x the bf16 limit")
+    check(wrong_ratio > 1.0, f"the MLA check passes the kernel without its "
+          f"last key tile ({wrong_ratio})")
+    ms = graph_ms(lambda: attention(q, k, v, **kw), 50)
+    loop_ms = cuda_ms(lambda: attention(q, k, v, **kw), 50)
+    plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), 5)
+    kv, vv = k[:, :, lo:hi], v[:, :, lo:hi]     # every row sees all of them
+    lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        q, kv, vv, scale=scale, enable_gqa=True)
+    rec = {}
+    try:
+        lib_err = max_abs_err(lib().float(), want.float())
+        rec = {"library_ms": graph_ms(lib, 50), "library_max_abs_err": lib_err,
+               "library_note": "torch.nn.functional.scaled_dot_product_"
+               "attention over the visible keys, enable_gqa (the one KV "
+               "head broadcast to the query heads)"}
+    except RuntimeError as e:       # no SDPA backend takes these dims
+        rec = {"library_ms": None, "library_note": f"scaled_dot_product_"
+               f"attention refused D={D}, Dv={Dv}: {str(e)[:200]}"}
+    nbytes = 2.0 * (B * Hq * Sq * (D + Dv) + B * (hi - lo) * D)
+    ops = 2.0 * B * Hq * pairs * (D + Dv)
+    b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows = Hq // Hkv * Sq                       # query rows per KV head
+    blocks = B * Hkv * -(-rows // fa_ops.MLA_ROWS)
+    plan = fa_ops.plan_mla_splits(Sq, Sk, causal=True, window=None,
+                                  q_offset=off, blocks=blocks, n_sm=n_sm)
+    return {"shape": f"q {list(q.shape)} k {list(k.shape)} v = k[..., :{Dv}] "
+                     f"q_offset {off} scale {scale:.6g} bf16",
+            "n_splits": plan.n_splits, "max_abs_err": err,
+            "err_over_bf16_limit": ratio,
+            "dropped_tile_err_over_bf16_limit": wrong_ratio,
+            "max_abs_plain": float(want.float().abs().max()), "ms": ms,
+            "host_loop_ms": loop_ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3, **rec}
+
+
+def moe_serving(arch: str, layers: int, dense: int | None, batch: int,
+                prompt: int, gen: int, dev, hold_to_plain: bool
+                ) -> tuple[dict, list]:
+    """One MoE model at full width and a cut depth: the tail drift on the
+    no-drop variant, held within 1.5 times the plain attention's drift in
+    the same run (``hold_to_plain``) or within the reference's 5e-2, with
+    the published capacity's drift printed; then ``serve_lm`` timed with launch
+    counts zeroed before and read after: every prefill attention call
+    through ``flash_prefill.cu``, every decode call through the MLA kernel
+    (deepseek-v3) or the split-K decode kernel (arctic), none elsewhere.
+    Returns the record and the shapes ``serve_lm`` gave the kernels."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import model as tm
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(arch)[0], n_layers=layers, mtp=False,
+                              **({} if dense is None else
+                                 {"n_dense_layers": dense}))
+    moe = cfg.moe
+    mla = cfg.mla is not None
+    dec = "flash_attention_mla" if mla else "flash_attention_decode"
+    torch.cuda.reset_peak_memory_stats()
+    _, params = serve.load_lm(arch, device=dev, seed=SEED, cfg=cfg)
+    n_params = sum(w.numel() for v in params.values() for w in (
+        v.values() if isinstance(v, dict) else [v]))
+    print(f"LM: {arch} at full width, {layers} layers "
+          f"({cfg.layer_groups()}), d {cfg.d_model}, {cfg.n_heads}:"
+          f"{cfg.n_kv_heads} heads, "
+          f"{'MLA ' + str(dataclasses.asdict(cfg.mla)) if mla else ''} "
+          f"MoE {dataclasses.asdict(moe)}, vocab {cfg.vocab}, {cfg.dtype}, "
+          f"{n_params} parameters, random weights (seed {SEED}); batch "
+          f"{batch}, prompt {prompt}, {gen} greedy decode steps; weights "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tokens = serve.prompt_tokens(cfg, 1, DRIFT_PROMPT, SEED, dev)
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _, rel = serve.tail_drift(params, nodrop, tokens, LM_TAIL)
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()
+    want = {"flash_attention": layers * (2 + LM_TAIL),
+            "flash_attention_prefill": 2 * layers, dec: layers * LM_TAIL}
+    check({k: v for k, v in n.items() if v} == want, f"{arch} tail check "
+          f"launched {n}, not {want}")
+    orig = tm.attention
+    tm.attention = attention_ref
+    try:
+        _, rel_plain = serve.tail_drift(params, nodrop, tokens, LM_TAIL)
+    finally:
+        tm.attention = orig
+    limit = DRIFT_OVER_PLAIN * rel_plain if hold_to_plain else 5e-2
+    check(rel <= limit, f"{arch} no-drop bf16 tail drift {rel} through the "
+          f"kernels, {rel_plain} through the plain version; limit {limit}")
+    _, rel_pub = serve.tail_drift(params, cfg, tokens, LM_TAIL)
+    serve.generate(params, cfg, serve.prompt_tokens(cfg, batch, 512, SEED,
+                                                    dev), 2)   # warm-up
+    del params
+    torch.cuda.empty_cache()
+
+    seen = []
+
+    def rec_shape(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                     kw["window"], kw["q_offset"], kw.get("scale")))
+        return orig(q, k, v, **kw)
+
+    tm.attention = rec_shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        res = serve.serve_lm(arch, batch, prompt, gen, device=dev, seed=SEED,
+                             cfg=cfg)
+        torch.cuda.synchronize()
+    finally:
+        tm.attention = orig
+    n = kernels.launch_counts()
+    want = {"flash_attention": layers * (1 + gen),
+            "flash_attention_prefill": layers, dec: layers * gen}
+    check({k: v for k, v in n.items() if v} == want, f"{arch} serve_lm "
+          f"launched {n}, not {want}: every prefill call through "
+          f"flash_prefill.cu, every decode call through {dec}, none "
+          f"through flash_attention.cu")
+    check(bool(torch.isfinite(res["prefill_logits"].float()).all()),
+          f"{arch} prefill logits not finite")
+    check(res["tokens"].shape == (batch, gen) and
+          ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab)).all(),
+          f"{arch} generated tokens out of range")
+    rec = {"arch": arch, "layers": layers,
+           "layer_groups": cfg.layer_groups(), "parameters": n_params,
+           "batch": batch, "prompt": prompt, "decode_steps": gen,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms_per_step": res["decode_s"] / gen * 1e3,
+           "decode_tok_per_s": batch * gen / res["decode_s"],
+           "launches": n, "peak_device_memory_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "tail_rel_err_bf16_no_drop": rel,
+           "tail_rel_err_bf16_no_drop_plain_attention": rel_plain,
+           "tail_rel_err_bf16_published_capacity": rel_pub,
+           "no_drop_capacity_factor": nodrop.moe.capacity_factor,
+           "phase_s": time.perf_counter() - t_phase}
+    del res
+    torch.cuda.empty_cache()
+    print(f"LM serving {arch}: {json.dumps(rec)}")
+    return rec, seen
+
+
+def mla_moe_phase(dev) -> tuple[dict, dict]:
+    """deepseek-v3 and arctic served at full width (phase 8), each model's
+    weights freed before the next; then the MLA kernel against its plain
+    version at the served decode shape and the MLA prefill shape (192,
+    128) through ``flash_prefill.cu``.  Returns the MLA kernel's record
+    and the prefill shape's."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import attention, attention_ref
+
+    # deepseek-v3's absorbed decode differs from its prefill path whatever
+    # computes attention, so its drift is held to the plain version's;
+    # arctic at 2 layers to the reference's 5e-2 (its plain drift may be 0)
+    ds, seen = moe_serving(DS_ARCH, DS_LAYERS, DS_DENSE, DS_BATCH, DS_PROMPT,
+                           DS_GEN, dev, hold_to_plain=True)
+    ar, _ = moe_serving(AR_ARCH, AR_LAYERS, None, AR_BATCH, AR_PROMPT,
+                        AR_GEN, dev, hold_to_plain=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    off = DS_PROMPT + 4
+    qs, ks, vs, _, _, scale = next(s for s in seen if s[0][2] == 1 and
+                                   s[4] == off)
+    dec = mla_decode_check(rand(qs), rand(ks), vs[3], off, scale)
+    print(f"MLA decode kernel: {json.dumps(dec)}")
+    # the MLA prefill shape through flash_prefill.cu's (192, 128)
+    # instantiation; heads are independent at Hq = Hkv, so the plain
+    # version (the full f32 score matrix would be 69 GB) runs on 4 heads
+    qs, ks, vs, _, _, scale = next(s for s in seen if s[0][2] > 1)
+    q, k, v = rand(qs), rand(ks), rand(vs)
+    kw = dict(causal=True, window=None, q_offset=0, scale=scale)
+    got = attention(q, k, v, **kw)
+    want = attention_ref(q[:, :4], k[:, :4], v[:, :4], **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got[:, :4].float(), want.float())
+    ratio = over_bf16_limit(got[:, :4], want)
+    check(err <= 2e-2 and ratio <= 1.0, f"flash_prefill differs from plain "
+          f"at the MLA prefill shape: {err}, {ratio}")
+
+    def lib():      # SDPA's fused backends only: the math one would hold
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,   # a 69 GB score
+                          SDPBackend.EFFICIENT_ATTENTION,     # matrix
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=scale)
+
+    try:
+        lib_err = max_abs_err(lib()[:, :4].float(), want.float())
+        lib_rec = {"library_ms": graph_ms(lib, 3),
+                   "library_max_abs_err_4_heads": lib_err,
+                   "library_note": "scaled_dot_product_attention, is_causal, "
+                                   "its fused backends"}
+    except RuntimeError as e:
+        lib_rec = {"library_ms": None, "library_note": f"no fused SDPA "
+                   f"backend took the call: {str(e)[:200]}"}
+    del got, want
+    B, Hq, Sq, D = qs
+    pairs, lo, hi = visible_span(Sq, ks[2], None, 0)
+    Dv = vs[3]
+    nbytes = 2.0 * (B * Hq * Sq * (D + Dv) + B * ks[1] * (hi - lo) * (D + Dv))
+    b, by = bound_ms(nbytes, 2.0 * B * Hq * pairs * (D + Dv), BF16_OPS_PER_S)
+    pre = {"shape": f"deepseek-v3 MLA prefill: q {list(qs)} k {list(ks)} v "
+                    f"{list(vs)} causal bf16",
+           "kernel": "flash_prefill.cu: attention_prefill_kernel<192, 128>",
+           "launches": ds["launches"]["flash_attention_prefill"],
+           "ms": graph_ms(lambda: attention(q, k, v, **kw), 3),
+           "plain_ms_4_heads": cuda_ms(
+               lambda: attention_ref(q[:, :4], k[:, :4], v[:, :4], **kw), 2,
+               warmup=1),
+           "bound_ms": b, "bound_by": by, "max_abs_err_4_heads": err,
+           "err_over_bf16_limit_4_heads": ratio, **lib_rec}
+    del q, k, v
+    torch.cuda.empty_cache()
+    print(f"MLA prefill shape: {json.dumps(pre)}")
+    rec = {"name": "flash_attention_mla", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_mla.cu",
+           "replaces": "src/repro/kernels/flash_attention/flash_attention.py"
+                       ":95", "launches": ds["launches"]["flash_attention_mla"],
+           "limits": {"bf16": "max abs <= 2e-2, and |kernel - plain| <= "
+                              "2^-6 |plain| + 1e-5 per element"},
+           **dec, "serving_deepseek_v3": ds, "serving_arctic": ar}
+    return rec, pre
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1293,6 +1603,7 @@ def main() -> int:
     for source, kernel in (("flash_prefill", "attention_prefill_kernel"),
                            ("flash_prefill_f32",
                             "attention_prefill_f32_kernel"),
+                           ("flash_mla", "mla_split_kernel"),
                            ("delta_apply", "delta_apply_fused_kernel"),
                            ("segment_sum", "segment_sum_bucketed_kernel")):
         print_ptxas(_build.logs.get(source, ""), kernel)
@@ -1656,6 +1967,10 @@ def main() -> int:
 
     # ------------------------------------------------------------ LM serving
     record.extend(lm_phase(dev))
+    mla_rec, mla_prefill = mla_moe_phase(dev)
+    next(r for r in record if r["name"] == "flash_attention_prefill")[
+        "shapes"].append(mla_prefill)
+    record.append(mla_rec)
 
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

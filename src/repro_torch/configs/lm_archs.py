@@ -3,9 +3,8 @@ package's ``configs/lm_archs.py`` with the port's config classes.
 
 The optimizer name beside each config is the training choice of the
 reference (adamw for the dense models, adafactor for the two MoEs); the
-port serves only, so far.  The dense three (yi-34b, stablelm-12b,
-gemma3-1b) run in the port; deepseek-v3 and arctic need MLA and MoE
-dispatch, which a later slice brings.
+port serves only, so far.  All five run in the port; on one card the
+two MoE models serve at full width and a cut depth (``chip_smoke.py``).
 """
 from __future__ import annotations
 

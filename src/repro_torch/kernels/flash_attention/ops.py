@@ -10,7 +10,9 @@ built at first use, by a rule on the call's shape and dtype
 rows per KV head (:func:`decode_shape`: decode) to the split-K kernel of
 ``csrc/flash_decode.cu``; other bf16 calls, at any head dim up to 256, to
 the wgmma/TMA kernel of ``csrc/flash_prefill.cu``; other f32 calls to the
-TF32 tensor-core kernel of ``csrc/flash_prefill_f32.cu``.  Both prefill kernels are instantiated
+TF32 tensor-core kernel of ``csrc/flash_prefill_f32.cu``; bf16 calls with
+a head dim past 256 (MLA's absorbed decode, D = 576, Dv = 512) to the
+split-K kernel of ``csrc/flash_mla.cu``.  Both prefill kernels are instantiated
 at a few head dims and run the smallest that holds the call's
 (:func:`prefill_dims`); TMA zero-fills the columns past the real dims, so
 nothing is padded on the host.  ``csrc/flash_attention.cu``, the first
@@ -18,8 +20,9 @@ design, is no route of :func:`attention`: :func:`_attention_mma` and
 :func:`_attention_simt` keep its kernels callable as yardsticks.
 :data:`launches` counts launches where they are made and nowhere else:
 ``flash_attention`` every kernel call of :func:`attention`,
-``flash_attention_prefill``, ``flash_attention_prefill_f32`` and
-``flash_attention_decode`` those that took each kernel.
+``flash_attention_prefill``, ``flash_attention_prefill_f32``,
+``flash_attention_decode`` and ``flash_attention_mla`` those that took
+each kernel.
 
 GQA is not broadcast here: the kernel reads KV head ``h // (Hq / Hkv)``
 itself.  Inputs may be strided views (a transposed projection, a slice of
@@ -38,9 +41,19 @@ from ..policy import use_kernel
 from .ref import attention_ref
 
 launches = {"flash_attention": 0, "flash_attention_prefill": 0,
-            "flash_attention_prefill_f32": 0, "flash_attention_decode": 0}
+            "flash_attention_prefill_f32": 0, "flash_attention_decode": 0,
+            "flash_attention_mla": 0}
 
 MAX_HEAD_DIM = 256          # the kernel keeps a row's Dv outputs in registers
+# The MLA kernel (csrc/flash_mla.cu), bf16 only: blocks of 64 query rows
+# (heads x Sq) over 32-key tiles (DECODE_TILE), K tiles staged whole in
+# shared memory, the 64 x Dv f32 accumulator split over eight warps by
+# output columns (64 each).  Its head dims: D = kv_lora + qk_rope = 576 at
+# most (a 64-row Q tile and the K ring, about 194 KB of shared memory),
+# Dv = 512.  f32 calls past 256 have no kernel: deepseek-v3's f32 weights
+# would not fit one card at any depth that runs its MoE layers.
+MLA_MAX_D, MLA_MAX_DV = 576, 512
+MLA_ROWS = 64
 _MAX_GRID_Y = 65535         # B·Hq blocks on the grid's second axis
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,6 +94,8 @@ _PREFILL = {torch.bfloat16: ("flash_prefill", "flash_attention_prefill",
 _PREFILL_ARGS = [_P, _P, _P, _P, *[_L] * 12, *[_I] * 12, _F, _P]
 _DECODE_SIGNATURES = {"flash_decode_launch": [*[_P] * 6, *[_L] * 12,
                                               *[_I] * 10, _F, *[_I] * 5, _P]}
+_MLA_SIGNATURES = {"flash_mla_launch": [*[_P] * 6, *[_L] * 12, *[_I] * 10,
+                                        _F, *[_I] * 5, _P]}
 
 
 class SplitPlan(NamedTuple):
@@ -111,10 +126,16 @@ def decode_shape(Sq: int, Hq: int, Hkv: int, D: int, Dv: int) -> bool:
 def route(Sq: int, Hq: int, Hkv: int, D: int, Dv: int,
           dtype: torch.dtype) -> str:
     """The source whose kernel :func:`attention` launches for a call:
-    ``flash_decode`` for :func:`decode_shape`, else the prefill kernel of
-    the dtype (``flash_prefill`` in bf16, ``flash_prefill_f32`` in f32) at
-    any head dims from 1 to :data:`MAX_HEAD_DIM`; raises ``ValueError``
-    for any other call."""
+    ``flash_mla`` for bf16 calls with a head dim past
+    :data:`MAX_HEAD_DIM` (D up to :data:`MLA_MAX_D`, Dv up to
+    :data:`MLA_MAX_DV`, any Sq); otherwise ``flash_decode`` for
+    :func:`decode_shape`, else the prefill kernel of the dtype
+    (``flash_prefill`` in bf16, ``flash_prefill_f32`` in f32) at any head
+    dims from 1 to :data:`MAX_HEAD_DIM`; raises ``ValueError`` for any
+    other call (f32 past 256 included)."""
+    if (dtype == torch.bfloat16 and max(D, Dv) > MAX_HEAD_DIM and
+            0 < D <= MLA_MAX_D and 0 < Dv <= MLA_MAX_DV):
+        return "flash_mla"
     if not (dtype in _PREFILL and 0 < D <= MAX_HEAD_DIM and
             0 < Dv <= MAX_HEAD_DIM):
         raise ValueError(f"no attention kernel takes {dtype} at D={D}, "
@@ -185,12 +206,30 @@ def plan_splits(Sq: int, Sk: int, *, causal: bool, window: int | None,
     B · Hkv) gives each of ``n_sm`` SMs about :data:`DECODE_BLOCKS_PER_SM`
     blocks, each split reading at least :data:`DECODE_MIN_TILES` tiles.  A
     call that sees no key gets one empty split."""
+    want = max(1, -(-DECODE_BLOCKS_PER_SM * n_sm // max(blocks, 1)))
+    return _cut_keys(Sq, Sk, causal, window, q_offset, want)
+
+
+def plan_mla_splits(Sq: int, Sk: int, *, causal: bool, window: int | None,
+                    q_offset: int, blocks: int, n_sm: int) -> SplitPlan:
+    """The split plan of ``flash_mla.cu``: one block fills an SM (its
+    shared memory), so ``blocks · n_splits`` (blocks = B · Hkv · row
+    blocks of :data:`MLA_ROWS`) stays within one wave of ``n_sm`` blocks
+    where it can: ``n_sm // blocks`` splits, each at least
+    :data:`DECODE_MIN_TILES` tiles of :data:`DECODE_TILE` keys."""
+    return _cut_keys(Sq, Sk, causal, window, q_offset,
+                     max(1, n_sm // max(blocks, 1)))
+
+
+def _cut_keys(Sq: int, Sk: int, causal: bool, window: int | None,
+              q_offset: int, want: int) -> SplitPlan:
+    """The call's visible keys cut into about ``want`` splits of whole
+    tiles, each at least :data:`DECODE_MIN_TILES` tiles."""
     lo, hi = visible_range(Sq, Sk, causal=causal, window=window,
                            q_offset=q_offset)
     if hi == lo:
         return SplitPlan(lo, hi, 1, 1)
     n_tiles = -(-hi // DECODE_TILE) - lo // DECODE_TILE
-    want = max(1, -(-DECODE_BLOCKS_PER_SM * n_sm // max(blocks, 1)))
     tiles = max(DECODE_MIN_TILES, -(-n_tiles // want))
     return SplitPlan(lo, hi, tiles, -(-n_tiles // tiles))
 
@@ -212,7 +251,8 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 scale: float | None) -> tuple:
     """Check what the kernel takes and return ``(q, k, v, sizes, flags)``
     as it takes them; raises ``TypeError`` or ``ValueError`` on anything
-    else (head dims above :data:`MAX_HEAD_DIM` included).
+    else (head dims above :data:`MAX_HEAD_DIM` in f32, above
+    :data:`MLA_MAX_D` / :data:`MLA_MAX_DV` in bf16, included).
 
     Every kernel copies 16-byte chunks (TMA, or 16-byte loads): views are
     passed by their strides when the last dimension is contiguous, the
@@ -234,15 +274,19 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or Hkv == 0 or Hq % Hkv):
         raise ValueError(f"attention shapes do not fit: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not (0 < D <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM):
-        raise ValueError(f"attention kernel supports head dims from 1 up to "
-                         f"{MAX_HEAD_DIM}, got D={D}, Dv={Dv}")
+    bf16 = q.dtype == torch.bfloat16
+    max_d, max_dv = ((MLA_MAX_D, MLA_MAX_DV) if bf16 else
+                     (MAX_HEAD_DIM, MAX_HEAD_DIM))
+    if not (0 < D <= max_d and 0 < Dv <= max_dv):
+        raise ValueError(f"attention kernels take head dims from 1 up to "
+                         f"{MAX_HEAD_DIM} in f32, and D up to {MLA_MAX_D}, "
+                         f"Dv up to {MLA_MAX_DV} in bf16; got {q.dtype} "
+                         f"D={D}, Dv={Dv}")
     if B * Hq > _MAX_GRID_Y:
         raise ValueError(f"attention kernel takes B·Hq <= {_MAX_GRID_Y}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     scale = float(scale if scale is not None else D ** -0.5)
-    bf16 = q.dtype == torch.bfloat16
     unit = 8 if bf16 else 4               # elements in 16 bytes
     d_unit = 16 if bf16 else 4            # bf16 D: the k16 tensor-core tile
     Dp, Dvp = -(-D // d_unit) * d_unit, -(-Dv // unit) * unit
@@ -275,8 +319,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale=scale)
     B, Hq, Hkv, Sq, Sk, D, Dv = sizes
     source = route(Sq, Hq, Hkv, D, Dv, q.dtype)
-    out = (_decode if source == "flash_decode" else _prefill)(
-        q, k, v, sizes, flags)
+    launch = {"flash_decode": _decode, "flash_mla": _mla}.get(source,
+                                                              _prefill)
+    out = launch(q, k, v, sizes, flags)
     launches["flash_attention"] += 1
     return out if out.shape[-1] == dv else out[..., :dv]
 
@@ -374,4 +419,37 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "flash_decode", err)
     launches["flash_attention_decode"] += 1
+    return out
+
+
+def _mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
+         flags: tuple) -> torch.Tensor:
+    """Launch the split-K MLA kernel and its combine (``csrc/flash_mla.cu``)
+    on the arguments :func:`kernel_args` gave.  When ``v`` is a view of
+    ``k``'s first Dv columns (MLA's absorbed decode passes
+    ``k_cat[..., :kv_lora]``) the kernel reads V from K's tile in shared
+    memory and loads no V tile."""
+    lib = _build.load("flash_mla", _MLA_SIGNATURES)
+    B, Hq, Hkv, Sq, Sk, D, Dv = sizes
+    causal, win, off, _ = flags
+    dev = q.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    row_blocks = -(-(Hq // Hkv) * Sq // MLA_ROWS)
+    plan = plan_mla_splits(Sq, Sk, causal=bool(causal), window=win or None,
+                           q_offset=off, blocks=B * Hkv * row_blocks,
+                           n_sm=n_sm)
+    v_in_k = (v.data_ptr() == k.data_ptr() and Dv <= D and
+              v.stride()[:3] == k.stride()[:3])
+    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=dev)
+    rows = B * Hq * Sq * plan.n_splits
+    ws = torch.empty(rows * (Dv + 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_mla_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), ws[rows * Dv:].data_ptr(),
+            *_strides(q, k, v, out), *sizes,
+            *flags, *plan, int(v_in_k),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "flash_mla", err)
+    launches["flash_attention_mla"] += 1
     return out

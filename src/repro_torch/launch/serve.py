@@ -12,10 +12,12 @@ and the snapshot-retrieval front ends.
         --events 2000 --shard-procs 2 --replicas 2 --device cpu
 
 ``--mode model`` is the counterpart of ``repro/launch/serve.py::serve_lm``
-for the dense LM architectures.  Weights are random, from a seeded
+for the five LM architectures (dense GQA, deepseek-v3's MLA + MoE,
+arctic's dense ∥ MoE).  Weights are random, from a seeded
 ``torch.Generator``; the prompt is ``numpy.random.default_rng(seed)``
 token ids.  The reference always runs the reduced config on its host;
-here ``reduced=True`` selects it, and the card runs the full width.
+here ``reduced=True`` selects it, and the card runs the full width (the
+two MoE models at a depth one card holds: ``load_lm(cfg=...)``).
 
 ``--mode evolve`` is the counterpart of ``serve_evolve``: dense
 evolutionary-query windows through the incremental temporal engine and
@@ -55,11 +57,13 @@ from ..models.transformer import model as tm
 
 
 def load_lm(arch: str, *, reduced: bool = False, device="cuda",
-            seed: int = 0):
+            seed: int = 0, cfg=None):
     """``(config, params)``: the architecture at full width (or its
-    reduced config) with random weights on ``device``."""
+    reduced config), or ``cfg`` where given (a cut depth), with random
+    weights on ``device``."""
     dev = resolve_device(device)
-    cfg = reduced_config(arch) if reduced else get_arch(arch)[0]
+    if cfg is None:
+        cfg = reduced_config(arch) if reduced else get_arch(arch)[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return cfg, init_params(tm.param_defs(cfg), gen, dev)
@@ -569,11 +573,14 @@ def serve_evolve(n_events: int, intervals: int, points: int, op: str, *,
 
 
 def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, *,
-             reduced: bool = False, device="cuda", seed: int = 0) -> dict:
+             reduced: bool = False, device="cuda", seed: int = 0,
+             cfg=None) -> dict:
     """Serve one batch: ``batch`` prompts of ``prompt_len`` tokens, ``gen``
     greedy decode steps; prints the times and a sample and returns
-    :func:`generate`'s record with ``config``."""
-    cfg, params = load_lm(arch, reduced=reduced, device=device, seed=seed)
+    :func:`generate`'s record with ``config``.  ``cfg`` as for
+    :func:`load_lm`."""
+    cfg, params = load_lm(arch, reduced=reduced, device=device, seed=seed,
+                          cfg=cfg)
     tokens = prompt_tokens(cfg, batch, prompt_len, seed,
                            params["embed"].device)
     res = generate(params, cfg, tokens, gen)

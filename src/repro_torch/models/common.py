@@ -39,13 +39,27 @@ def tree_map_defs(fn: Callable[[ParamDef], Any], tree: Tree) -> Tree:
     return out
 
 
+# A leaf whose f32 draw would pass DRAW_LIMIT_BYTES is drawn in runs of its
+# trailing matrices (along the flattened leading dims, each run's f32 draw
+# within DRAW_RUN_BYTES) into a preallocated leaf of its own dtype:
+# deepseek-v3's e_gate at 2 MoE layers is 7.5 G elements, 30 GB in f32, and
+# drawn whole (twice over, with the scaled copy) it alone would pass the
+# card's 80 GB.  The limit is above stablelm-12b's largest leaf (w_gate,
+# 11.3 GB in f32), so smaller models keep the weights a single draw per
+# leaf gave them.
+DRAW_LIMIT_BYTES = 16 << 30
+DRAW_RUN_BYTES = 1 << 30
+
+
 def init_params(tree: Tree, generator: torch.Generator,
                 device="cuda") -> Tree:
     """Random parameters for ``tree``: ``normal`` leaves are N(0, 1) / sqrt
     (fan-in) drawn in f32 from ``generator`` (which must live on
     ``device``) and cast to the leaf's dtype, fan-in being the next-to-last
     dimension (the last for a vector); ``zeros`` / ``ones`` as named.
-    Leaves are drawn in the reference's order, but ``torch`` and
+    Leaves are drawn in the reference's order, those past
+    :data:`DRAW_LIMIT_BYTES` in f32 in runs of matrices of at most
+    :data:`DRAW_RUN_BYTES`, but ``torch`` and
     ``jax.random`` give different numbers from one seed: carry the
     reference's weights with :func:`repro_torch.interop.params_from_reference`
     where the two must agree.  ``device`` is the card unless the caller
@@ -59,9 +73,20 @@ def init_params(tree: Tree, generator: torch.Generator,
             return torch.ones(d.shape, dtype=d.dtype, device=device)
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-        v = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (v * scale).to(d.dtype)
+        if 4 * math.prod(d.shape) <= DRAW_LIMIT_BYTES or len(d.shape) < 3:
+            v = torch.randn(d.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            return (v * scale).to(d.dtype)
+        out = torch.empty(d.shape, dtype=d.dtype, device=device)
+        mats = out.view(-1, *d.shape[-2:])
+        run = max(1, DRAW_RUN_BYTES // (4 * math.prod(d.shape[-2:])))
+        for j in range(0, mats.shape[0], run):
+            dst = mats[j:j + run]
+            v = torch.randn(dst.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            dst.copy_(v.mul_(scale))
+            del v
+        return out
 
     return tree_map_defs(leaf, tree)
 

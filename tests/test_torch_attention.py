@@ -225,14 +225,16 @@ def test_kernel_args_checks():
 
 @pytest.mark.parametrize("Sq,source", [(4, "flash_decode"),
                                        (40, "flash_prefill_f32"),
-                                       (40, "flash_prefill")])
+                                       (40, "flash_prefill"),
+                                       (1, "flash_mla")])
 def test_no_fallback_to_plain(monkeypatch, Sq, source):
     """Inputs the policy sends to a kernel are launched or raise: with the
     dispatch forced to the kernels and their build failing, the call
     raises instead of answering with the plain version, and no launch is
     counted.  Sq = 4 rows on one KV head takes the decode kernel, Sq = 40
     in f32 at D = 16 the TF32 prefill kernel, Sq = 40 in bf16 at D = 64
-    the wgmma/TMA prefill kernel."""
+    the wgmma/TMA prefill kernel, Sq = 1 in bf16 at MLA's D = 576 the MLA
+    kernel."""
     def failed_build(name, signatures):
         raise RuntimeError(f"nvcc {name}.cu failed")
 
@@ -241,10 +243,12 @@ def test_no_fallback_to_plain(monkeypatch, Sq, source):
     before = launch_counts()
     if source == "flash_prefill":
         x = torch.zeros(1, 1, Sq, 64, dtype=torch.bfloat16)
+    elif source == "flash_mla":
+        x = torch.zeros(1, 1, Sq, 576, dtype=torch.bfloat16)
     else:
         x = torch.zeros(1, 1, Sq, 16)
     with pytest.raises(RuntimeError, match=f"nvcc {source}.cu failed"):
-        attention(x, x, x)
+        attention(x, x, x[..., :512])
     assert launch_counts() == before
 
 
@@ -270,9 +274,15 @@ def test_prefill_shape():
     assert fa_ops.route(3, g.n_heads, 1, 256, 256, bf16) == "flash_prefill"
     for d in (16, 24, 32, 160):
         assert fa_ops.route(64, 4, 1, d, d, bf16) == "flash_prefill", d
-    for bad in ((320, 320, bf16), (64, 64, torch.float16)):
+    for bad in ((640, 512, bf16), (576, 576, bf16), (576, 512, f32),
+                (320, 320, f32), (64, 64, torch.float16)):
         with pytest.raises(ValueError, match="no attention kernel"):
             fa_ops.route(64, 4, 1, *bad)
+    # bf16 past 256: the MLA kernel, at any Sq (deepseek-v3's absorbed
+    # decode: 128 heads on one latent KV head of 576, Dv 512)
+    for Sq, Hq, d, dv in ((1, 128, 576, 512), (3, 128, 576, 512),
+                          (64, 4, 320, 320), (1, 4, 128, 264)):
+        assert fa_ops.route(Sq, Hq, 1, d, dv, bf16) == "flash_mla"
     for dv in (128, 96):            # the MLA prefill, and a mixed width
         assert fa_ops.route(40, 2, 1, 192, dv, bf16) == "flash_prefill"
     assert [fa_ops.prefill_dims(*d) for d in
@@ -465,15 +475,18 @@ PLAN_CASES = [
 
 
 @pytest.mark.parametrize("case", PLAN_CASES)
-def test_split_planner(case):
+@pytest.mark.parametrize("planner", ["plan_splits", "plan_mla_splits"])
+def test_split_planner(case, planner):
     """The splits cover exactly the visible keys (the union of what the
     rows see, from the mask itself), contiguous, inner boundaries on
-    32-key tiles, never past q_offset + Sq; where the keys allow 2 blocks
-    per SM, the call has at least one per SM, and a split reads at least
-    2 tiles."""
+    32-key tiles, never past q_offset + Sq, and a split reads at least 2
+    tiles; where the keys allow 2 blocks per SM, the decode kernel's call
+    has at least one per SM, and the MLA kernel's (one block an SM) stays
+    within one wave of ``n_sm`` blocks and fills at least 80 % of it
+    (``n_sm // blocks`` splits wanted, whole tiles each)."""
     Sq, Sk, causal, window, off, blocks = case
-    plan = fa_ops.plan_splits(Sq, Sk, causal=causal, window=window,
-                              q_offset=off, blocks=blocks, n_sm=132)
+    plan = getattr(fa_ops, planner)(Sq, Sk, causal=causal, window=window,
+                                    q_offset=off, blocks=blocks, n_sm=132)
     assert all(isinstance(x, int) for x in plan)
     seen = visible(Sq, Sk, causal=causal, window=window,
                    q_offset=off).any(dim=0).nonzero().flatten().tolist()
@@ -494,7 +507,11 @@ def test_split_planner(case):
     n_tiles = -(-plan.hi // tile) - plan.lo // tile
     assert plan.tiles >= min(fa_ops.DECODE_MIN_TILES, n_tiles)
     if n_tiles >= 2 * 2 * 132 // blocks:       # keys enough for 2 per SM
-        assert blocks * plan.n_splits >= 132
+        if planner == "plan_splits":
+            assert blocks * plan.n_splits >= 132
+        else:
+            assert plan.n_splits >= 0.8 * (132 // blocks)
+            assert blocks * plan.n_splits <= 132
 
 
 def test_split_planner_at_gemma_decode():
@@ -507,6 +524,15 @@ def test_split_planner_at_gemma_decode():
                              **GEMMA_DECODE)
     assert (glob.lo, glob.hi) == (0, 4101) and 8 * glob.n_splits >= 132
     assert (loc.lo, loc.hi) == (3589, 4101) and loc.n_splits >= 4
+
+
+def test_mla_planner_at_deepseek_decode():
+    """deepseek-v3's absorbed decode in the smoke run: B = 8, 128 query
+    heads on one KV head (two blocks of 64 rows each), 4,101 visible keys
+    of the 4,128-key cache: 8 splits of 17 tiles, 128 blocks on 132 SMs."""
+    plan = fa_ops.plan_mla_splits(1, 4128, causal=True, window=None,
+                                  q_offset=4100, blocks=8 * 2, n_sm=132)
+    assert plan == fa_ops.SplitPlan(0, 4101, 17, 8)
 
 
 def test_decode_shape():

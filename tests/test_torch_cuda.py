@@ -672,6 +672,154 @@ def test_cuda_lm_matches_cpu(cuda_device):
     assert rel <= 1e-4, rel
 
 
+MLA_SHAPES = [
+    # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_off, v_in_k)
+    (2, 128, 1, 1, 300, 576, 512, True, None, 299, True),   # ragged last tile
+    (2, 128, 1, 1, 300, 576, 512, True, None, 299, False),  # V a tensor
+    (8, 128, 1, 1, 4128, 576, 512, True, None, 4100, True),  # served, tail
+    (1, 128, 1, 1, 1, 576, 512, True, None, 0, True),       # one key
+    (1, 16, 1, 1, 64, 576, 512, True, None, -1, True),      # no key visible
+    (1, 64, 1, 3, 200, 576, 512, True, None, 150, False),   # Sq = 3, 3 blocks
+    (1, 8, 2, 40, 100, 320, 256, True, 17, 50, False),      # window, Hkv 2
+    (1, 4, 1, 70, 70, 288, 288, False, None, 0, True),      # v = k, acausal
+    (1, 32, 1, 1, 77, 272, 264, True, None, 76, True),      # Dv % 16 = 8
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+def test_cuda_mla_matches_plain(cuda_device, shape):
+    """The MLA kernel (bf16, a head dim past 256) against the plain version,
+    element by element within 2^-6·|plain| + 1e-5 (as the prefill kernel:
+    f32 sums, p as bf16 hi + lo, one rounding to bf16 each); rows that see
+    no key exactly 0.  v is either k's first Dv columns (a view: the
+    kernel reads V from K's tiles) or a tensor of its own.  Only
+    ``flash_attention`` and ``flash_attention_mla`` count the call."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff, v_in_k = shape
+    g = torch.Generator().manual_seed(Sq * Sk + D + Dv)
+    q, k = (torch.randn(s, generator=g).bfloat16()
+            for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D)))
+    v = torch.randn(B, Hkv, Sk, Dv, generator=g).bfloat16()
+    assert fa_ops.route(Sq, Hq, Hkv, D, Dv, q.dtype) == "flash_mla"
+    qd, kd = q.to(cuda_device), k.to(cuda_device)
+    vd = kd[..., :Dv] if v_in_k else v.to(cuda_device)
+    if v_in_k:
+        v = k[..., :Dv]
+    kw = dict(causal=causal, window=window, q_offset=qoff,
+              scale=192 ** -0.5)
+    n0 = launch_counts()
+    got = attention(qd, kd, vd, **kw)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert {n: n1[n] - n0[n] for n in n0 if n1[n] != n0[n]} == {
+        "flash_attention": 1, "flash_attention_mla": 1}
+    want = attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2 ** -6,
+                               atol=1e-5)
+    keyless = ~visible(Sq, Sk, causal=causal, window=window,
+                       q_offset=qoff).any(dim=1)
+    assert torch.all(got.cpu()[:, :, keyless] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_route(cuda_device):
+    """Past 256 only bf16 has a kernel: an f32 call at MLA's D = 576 raises
+    ``ValueError`` naming the dims and launches nothing, and no call goes
+    to the plain version."""
+    q = torch.zeros(1, 4, 1, 576, device=cuda_device)
+    k = torch.zeros(1, 1, 8, 576, device=cuda_device)
+    n0 = launch_counts()
+    with pytest.raises(ValueError, match="D=576, Dv=512"):
+        attention(q, k, k[..., :512], q_offset=7)
+    assert launch_counts() == n0
+    with pytest.raises(ValueError, match="no attention kernel"):
+        fa_ops.route(1, 4, 1, 576, 512, torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_model_matches_cpu(cuda_device):
+    """A deepseek-v3 model at MLA's published latent widths (kv_lora 512,
+    qk_rope 64: attention at D = 576 in the absorbed decode), 16 heads,
+    three layers (one dense, two MoE), bf16: prefill and decode on the card
+    against the host's within 5e-2 relative (the bf16 bound of the CPU
+    tests), each decode step's three attention calls through the MLA
+    kernel.  The router bias (which only routes) pins every token to
+    experts 0 and 1: at 4 experts top-2, a bf16 ulp between cuBLAS and the
+    host's products would otherwise flip a near-tied expert choice."""
+    import dataclasses
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import MLAConfig
+    from repro_torch.models.transformer import model as tm
+
+    cfg = dataclasses.replace(
+        reduced_config("deepseek-v3-671b"), n_layers=3, n_heads=16,
+        mla=MLAConfig(q_lora=64, kv_lora=512, qk_nope=32, qk_rope=64,
+                      v_dim=32))
+    params = init_params(tm.param_defs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    params["group1"]["router_bias"][:] = torch.tensor([8.0, 4.0, 0.0, -4.0])
+    dparams = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else
+                   {n: w.to(cuda_device) for n, w in v.items()})
+               for k, v in params.items()}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256,
+                                                                (2, 40)))
+    last, cache = tm.prefill_step(params, tokens[:, :36], cfg, max_len=40)
+    dlast, dcache = tm.prefill_step(dparams, tokens[:, :36].to(cuda_device),
+                                    cfg, max_len=40)
+    rel = (dlast.cpu().float() - last.float()).abs().max() / last.abs().max()
+    assert rel <= 5e-2, rel
+    for i in range(36, 40):
+        n0 = launch_counts()["flash_attention_mla"]
+        lg, cache = tm.decode_step(params, cache, tokens[:, i:i + 1], i, cfg)
+        dlg, dcache = tm.decode_step(dparams, dcache,
+                                     tokens[:, i:i + 1].to(cuda_device), i,
+                                     cfg)
+        assert launch_counts()["flash_attention_mla"] == n0 + 3
+        rel = (dlg.cpu().float() - lg.float()).abs().max() / lg.abs().max()
+        assert rel <= 5e-2, (i, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_init_params_as_before(cuda_device):
+    """gemma3-1b's weights at full width on the card are what one f32 draw
+    per leaf, scaled and cast, gave before large leaves were drawn in
+    runs (every gemma3-1b leaf is under the limit): bit for bit."""
+    import math
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.common import ParamDef, init_params
+    from repro_torch.models.transformer import model as tm
+
+    tree = tm.param_defs(get_arch("gemma3-1b")[0])
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    got = init_params(tree, gen, cuda_device)
+    gen.manual_seed(0)
+
+    def before(d: ParamDef):
+        if d.init != "normal":
+            return None
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        v = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=cuda_device)
+        return (v * (1.0 / math.sqrt(max(fan_in, 1)))).to(d.dtype)
+
+    def walk(defs, params):
+        for key, d in defs.items():
+            if isinstance(d, dict):
+                walk(d, params[key])
+                continue
+            want = before(d)
+            if want is not None:
+                assert torch.equal(params[key].view(torch.int16),
+                                   want.view(torch.int16)), key
+
+    walk(tree, got)
+
+
 # ---------------------------------------------------------------------------
 # temporal engine on the card, against the port's CPU runs
 # ---------------------------------------------------------------------------

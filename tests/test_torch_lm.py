@@ -1,6 +1,8 @@
-"""The port's dense LM against the JAX package's, with the same weights.
+"""The port's LMs against the JAX package's, with the same weights.
 
-Reduced gemma3-1b, yi-34b and stablelm-12b (``reduced_lm``; plus gemma3
+Reduced gemma3-1b, yi-34b, stablelm-12b, deepseek-v3 (MLA, a dense layer
+then MoE layers with the sigmoid aux-free router and a shared expert,
+``mtp`` declared) and arctic (dense ∥ MoE) (``reduced_lm``; plus gemma3
 at 6 layers, so that its 5:1 pattern reaches a global layer) are built on
 both sides; the JAX ``init_params(..., PRNGKey(0))`` weights are carried to
 the port by ``params_from_reference``.  Held to the JAX ``forward`` (its
@@ -28,7 +30,8 @@ from repro_torch.interop import params_from_reference
 from repro_torch.launch.serve import serve_lm, tail_drift
 from repro_torch.models.transformer import model as tm
 
-CASES = ["gemma3-1b", "gemma3-1b-6L", "yi-34b", "stablelm-12b"]
+CASES = ["gemma3-1b", "gemma3-1b-6L", "yi-34b", "stablelm-12b",
+         "deepseek-v3-671b", "arctic-480b"]
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 B, S, S0 = 2, 16, 12
 
@@ -66,18 +69,24 @@ def _rel(got, want) -> float:
 
 def test_forward_matches_jax(models):
     jcfg, jparams, cfg, params, tokens, tol = models
-    want = jax.jit(lambda p, t: jtm.forward(p, t, jcfg)[0])(
+    want, jaux = jax.jit(lambda p, t: jtm.forward(p, t, jcfg)[:2])(
         jparams, jnp.asarray(tokens, jnp.int32))
     got, aux, caches, _ = tm.forward(params, torch.from_numpy(tokens), cfg)
     assert tuple(got.shape) == (B, S, cfg.vocab) and got.dtype == cfg.dtype
-    assert aux == 0.0 and caches is None
+    assert caches is None
     assert _rel(got, want) <= tol
+    if cfg.moe is None:
+        assert aux == 0.0
+    else:     # the summed load-balance term of the MoE layers
+        assert abs(float(aux) - float(jaux)) <= tol * abs(float(jaux))
 
 
 def test_prefill_and_decode_match_jax(models):
     """Prefill of the first S0 tokens, then S - S0 decode steps fed the
     prompt's next tokens: last logits at every step and the prefill
-    caches agree with the JAX package's."""
+    caches agree with the JAX package's (MLA: the latents, ``[L, B, S,
+    ·]``; the reference's ``serve_lm`` copies them into a decode cache as
+    the port's ``prefill_step(max_len=...)`` does)."""
     jcfg, jparams, cfg, params, tokens, tol = models
     jt = jnp.asarray(tokens, jnp.int32)
     jlast, jcaches = jax.jit(lambda p, t: jtm.prefill_step(p, t, jcfg))(
@@ -89,7 +98,9 @@ def test_prefill_and_decode_match_jax(models):
         assert tuple(k.shape) == jk.shape and _rel(k, jk) <= tol
         assert _rel(v, jv) <= tol
 
-    jcache = [(ck.at[:, :, :, :S0].set(pk), cv.at[:, :, :, :S0].set(pv))
+    seq = (slice(None),) * (2 if cfg.mla is not None else 3) + (
+        slice(0, S0),)
+    jcache = [(ck.at[seq].set(pk), cv.at[seq].set(pv))
               for (ck, cv), (pk, pv) in zip(jtm.init_cache(jcfg, B, S),
                                             jcaches)]
     dec = jax.jit(lambda p, c, tk, n: jtm.decode_step(p, c, tk, n, jcfg))
@@ -111,7 +122,8 @@ def test_prefill_decode_consistency(models):
     assert rel <= tol, rel
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "yi-34b", "stablelm-12b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "yi-34b", "stablelm-12b",
+                                  "deepseek-v3-671b", "arctic-480b"])
 def test_serve_lm_runs_on_cpu(arch):
     res = serve_lm(arch, 2, 8, 3, reduced=True, device="cpu")
     assert res["tokens"].shape == (2, 3)
@@ -138,8 +150,9 @@ def test_params_from_reference_checks_the_tree():
 
 
 def test_configs_and_unported_archs():
-    """The copied configs equal the reference's field by field; MLA and
-    MoE configs raise until their slice, and GNN/DIN names are unknown."""
+    """The copied configs equal the reference's field by field, and so
+    do the parameter trees (key for key, shape for shape, the dtype's
+    name) at full width and reduced; GNN/DIN names are unknown."""
     from repro.configs.registry import get_arch as j_get_arch
     for arch in ("yi-34b", "stablelm-12b", "gemma3-1b", "deepseek-v3-671b",
                  "arctic-480b"):
@@ -155,8 +168,51 @@ def test_configs_and_unported_archs():
                 assert dataclasses.asdict(a) == dataclasses.asdict(b)
         assert cfg.layer_meta() == tuple(np.asarray(x).tolist()
                                          for x in jcfg.layer_meta())
-    for arch in ("deepseek-v3-671b", "arctic-480b"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            tm.param_defs(reduced_config(arch))
+
+    def dtype_name(dt) -> str:
+        if isinstance(dt, torch.dtype):
+            return str(dt).removeprefix("torch.")
+        return np.dtype(dt).name
+
+    def flat(tree, path=""):
+        out = {}
+        for key, d in tree.items():
+            if isinstance(d, dict):
+                out.update(flat(d, f"{path}{key}/"))
+            else:
+                out[path + key] = (tuple(d.shape), tuple(d.axes), d.init,
+                                   dtype_name(d.dtype))
+        return out
+
+    for arch in ("yi-34b", "stablelm-12b", "gemma3-1b", "deepseek-v3-671b",
+                 "arctic-480b"):
+        for make, jmake in ((lambda a: get_arch(a)[0],
+                             lambda a: j_get_arch(a)[0]),
+                            (reduced_config, j_reduced_config)):
+            got, want = (flat(tm.param_defs(make(arch))),
+                         flat(jtm.param_defs(jmake(arch))))
+            assert got == want, arch
     with pytest.raises(KeyError):
         family_of("din")
+
+
+def test_init_params_draws_large_leaves_in_runs(monkeypatch):
+    """A leaf whose f32 draw passes ``DRAW_LIMIT_BYTES`` is drawn in runs
+    of its trailing matrices (each run's f32 draw within
+    ``DRAW_RUN_BYTES``), in order from the generator, scaled by 1 /
+    sqrt(fan-in) and cast into a leaf of its own dtype; a leaf within the
+    limit is one draw, as before."""
+    from repro_torch.models import common as mc
+
+    tree = {"big": mc.ParamDef((2, 3, 4, 5), ("layers", "experts", "embed",
+                                              None)),
+            "small": mc.ParamDef((4, 5), ("embed", None))}
+    monkeypatch.setattr(mc, "DRAW_LIMIT_BYTES", 4 * 4 * 5)      # 1 matrix
+    monkeypatch.setattr(mc, "DRAW_RUN_BYTES", 4 * 2 * 4 * 5)    # 2 a run
+    got = mc.init_params(tree, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    runs = [torch.randn(2, 4, 5, generator=gen) for _ in range(3)]
+    big = (torch.cat(runs) * 0.5).bfloat16().view(2, 3, 4, 5)  # fan-in 4
+    small = (torch.randn(4, 5, generator=gen) * 0.5).bfloat16()
+    assert got["big"].dtype == torch.bfloat16
+    assert torch.equal(got["big"], big) and torch.equal(got["small"], small)
