@@ -8,7 +8,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 1. set-up: the card's name and power limit; every CUDA kernel built from
    ``src/repro_torch/kernels/csrc`` with one ``nvcc`` per source, all at
    once, and ptxas's registers, spills and shared memory for the two
-   prefill kernels, the MLA kernel, the fused and the segment-sum kernels;
+   prefill kernels, both MLA kernels, the fused and the segment-sum
+   kernels;
 2. retrieval path: a ``growing_network(2_000_000)`` history (the
    generator's analogue of the paper's Dataset 1) indexed by a
    ``GraphManager`` (``L=50_000, k=4, diff_fn="intersection"``, no snapshot
@@ -125,28 +126,38 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    weights freed before the next.  For each, the tail drift (16 steps) on a
    no-drop variant (``capacity_factor = E / K``, batch 1, a 256-token
    prompt): deepseek-v3 within 1.5 times the plain attention's drift in
-   the same run, arctic within the reference's 5e-2; the published
-   capacity's drift printed.  ``serve_lm`` timed (prefill ms, decode ms a
+   the same run on 2 weight x 8 prompt seeds, with its router free (the
+   medians: a decode step's routes may flip on any rounding) and with
+   every token's routes pinned (each seed), and every MLA call of its
+   first decode within the bf16 limit of the plain version; arctic within
+   the reference's 5e-2; the published capacity's drift printed.
+   ``serve_lm`` timed (prefill ms, decode ms a
    step, peak device memory), launch counts zeroed before and read after:
    every prefill attention call through ``flash_prefill.cu`` (deepseek's
    MLA prefill at its (192, 128) instantiation), every decode call
-   through ``flash_mla.cu`` (deepseek: 3 a step) or ``flash_decode.cu``
-   (arctic: 2 a step), none through ``flash_attention.cu``.  Then the MLA
-   kernel against its plain version at the served decode shape (q [8,
-   128, 1, 576], k [8, 1, 4128, 576], v its first 512 columns, q_offset
-   4,100; 2e-2 and two bf16 ulps, which the kernel without its last key
-   tile must fail), timed beside the plain version and SDPA; and the MLA
-   prefill shape (q/k [8, 128, 4096, 192]) through ``flash_prefill.cu``
-   against the plain version on 4 of its heads.
+   through ``flash_mla_wgmma.cu`` (deepseek: 3 a step) or
+   ``flash_decode.cu`` (arctic: 2 a step), none through
+   ``flash_attention.cu`` or ``flash_mla.cu``.  Then the MLA kernel
+   against its plain version at the served decode shape (q [8, 128, 1,
+   576], k [8, 1, 4128, 576], v its first 512 columns, q_offset 4,100;
+   2e-2 and two bf16 ulps, which the kernel without its last 64-key tile
+   must fail), with ``cudaOccupancyMaxActiveClusters`` for clusters of 1
+   to 8 blocks (the plan's cluster size), timed beside the first MLA
+   kernel (``flash_mla.cu`` through ``ops._mla_mma``, held to the same
+   limits), the plain version and SDPA; and the MLA prefill shape (q/k
+   [8, 128, 4096, 192]) through ``flash_prefill.cu`` against the plain
+   version on 4 of its heads.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import statistics
 import re
 import subprocess
 import sys
@@ -190,6 +201,14 @@ DS_ARCH, DS_LAYERS, DS_DENSE = "deepseek-v3-671b", 3, 1
 DS_BATCH, DS_PROMPT, DS_GEN = 8, 4096, 32
 AR_ARCH, AR_LAYERS, AR_BATCH, AR_PROMPT, AR_GEN = "arctic-480b", 2, 8, 2048, 8
 DRIFT_PROMPT = 256
+# deepseek-v3's router takes 8 of 256 experts by sigmoid scores whose 8th
+# and 9th lie 1e-5 to 1e-2 apart, so decode and prefill route a few tail
+# tokens differently in every run, and when the last token's routes differ
+# the drift jumps from about 0.013 to about 0.1, through any correct
+# attention (the plain version's own on 4 of these 16 seeds; PERF.md).  Its
+# drift is held with free routes on the median over these weight x prompt
+# seeds, and with every token's routes pinned on each of them.
+DRIFT_WEIGHT_SEEDS, DRIFT_PROMPT_SEEDS = (0, 1), 8
 # evolve path: serve --mode evolve's default workload, 8 intervals of 32
 # points over 5 % of the history each; the recompute engine and the checks
 # run at every 4th point.  One loader window of 8 points: its host
@@ -279,6 +298,24 @@ def over_bf16_limit(got, want) -> float:
     return float(((g - w).abs() / (BF16_RTOL * w.abs() + BF16_ATOL)).max())
 
 
+@contextlib.contextmanager
+def pinned_routes(params: dict, top_k: int):
+    """Every token's MoE routes pinned to experts 0..top_k-1 inside the
+    block: each ``router_bias`` set to 2 there and 0 elsewhere (sigmoid
+    scores lie in (0, 1), so the bias decides), restored after."""
+    biases = [g["router_bias"] for g in params.values()
+              if isinstance(g, dict) and "router_bias" in g]
+    saved = [b.clone() for b in biases]
+    for b in biases:
+        b.zero_()
+        b[..., :top_k] = 2.0
+    try:
+        yield
+    finally:
+        for b, b0 in zip(biases, saved):
+            b.copy_(b0)
+
+
 def same_bits(got, want) -> bool:
     import torch
     if got.dtype == torch.float32:
@@ -315,7 +352,7 @@ def print_ptxas(log: str, kernel: str) -> None:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m[1].split(kernel, 1)
-            args = (re.findall(r"Li(n?\d+)E", mangled[1].split("EEv")[0])
+            args = (re.findall(r"L[ib](n?\d+)E", mangled[1].split("EEv")[0])
                     if len(mangled) == 2 else None)
             name = None if args is None else (
                 f"{kernel}<{', '.join(a.replace('n', '-') for a in args)}>"
@@ -1286,12 +1323,16 @@ def lm_phase(dev) -> list[dict]:
 
 
 def mla_decode_check(q, k, Dv: int, off: int, scale: float) -> dict:
-    """The MLA kernel at an absorbed-decode shape (v the first Dv columns
-    of k, as the model passes it) against the plain version: 2e-2 and two
-    bf16 ulps, which the kernel run without its last visible key tile must
-    fail; its device time (CUDA-graph replay), host loop, the plain
-    version's time, SDPA's (the KV head broadcast by ``enable_gqa``) where
-    a backend takes D = 576 with Dv = 512, and the bound."""
+    """The MLA kernel (``flash_mla_wgmma.cu``) at an absorbed-decode shape
+    (v the first Dv columns of k, as the model passes it) against the plain
+    version: 2e-2 and two bf16 ulps, which the kernel run without its last
+    visible 64-key tile must fail; the card's cluster capacity and the
+    plan; its device time (CUDA-graph replay) and host loop beside the
+    first MLA kernel's (``flash_mla.cu`` through ``ops._mla_mma``, held to
+    the same limits) on the same inputs, the plain version's time, SDPA's
+    (the KV head broadcast by ``enable_gqa``) where a backend takes
+    D = 576 with Dv = 512, the bound and the floor of the kernel's own
+    tensor work (P_hi + P_lo)."""
     import torch
     import torch.nn.functional as F
 
@@ -1311,18 +1352,36 @@ def mla_decode_check(q, k, Dv: int, off: int, scale: float) -> dict:
           f"MLA decode ran {moved}, not flash_attention_mla alone")
     want = attention_ref(q, k, v, **kw)
     pairs, lo, hi = visible_span(Sq, Sk, None, off)
-    kd = k[:, :, :hi - 32]
+    tile = fa_ops.MLA_BLOCK_N
+    kd = k[:, :, :(hi - 1) // tile * tile]          # the last tile dropped
     wrong = attention(q, kd, kd[..., :Dv], **kw)
+    old = fa_ops._mla_mma(q, k, v, **kw)
     torch.cuda.synchronize()
     err, ratio = max_abs_err(got.float(), want.float()), over_bf16_limit(
         got, want)
     wrong_ratio = over_bf16_limit(wrong, want)
-    check(err <= 2e-2 and ratio <= 1.0, f"flash_mla differs from plain: max "
-          f"abs {err}, {ratio} x the bf16 limit")
+    old_err, old_ratio = max_abs_err(old.float(), want.float()), \
+        over_bf16_limit(old, want)
+    check(err <= 2e-2 and ratio <= 1.0, f"flash_mla_wgmma differs from "
+          f"plain: max abs {err}, {ratio} x the bf16 limit")
     check(wrong_ratio > 1.0, f"the MLA check passes the kernel without its "
           f"last key tile ({wrong_ratio})")
+    check(old_err <= 2e-2 and old_ratio <= 1.0, f"flash_mla.cu (the "
+          f"yardstick) differs from plain: {old_err}, {old_ratio}")
+    rows = Hq // Hkv * Sq                       # query rows per KV head
+    blocks = B * Hkv * -(-rows // fa_ops.MLA_ROWS)
+    slots = {n: fa_ops.mla_cluster_slots(q.device, n)
+             for n in range(1, fa_ops.MLA_MAX_CLUSTER + 1)}
+    plan = fa_ops.plan_mla_wgmma_splits(
+        Sq, Sk, causal=True, window=None, q_offset=off, blocks=blocks,
+        block_n=tile, max_clusters=slots.__getitem__)
+    print(f"MLA decode: cudaOccupancyMaxActiveClusters for clusters of 1..8 "
+          f"blocks {json.dumps(slots)}; {blocks} row blocks; plan "
+          f"{plan._asdict()}")
     ms = graph_ms(lambda: attention(q, k, v, **kw), 50)
     loop_ms = cuda_ms(lambda: attention(q, k, v, **kw), 50)
+    old_ms = graph_ms(lambda: fa_ops._mla_mma(q, k, v, **kw), 50)
+    ms_again = graph_ms(lambda: attention(q, k, v, **kw), 50)
     plain = cuda_ms(lambda: attention_ref(q, k, v, **kw), 5)
     kv, vv = k[:, :, lo:hi], v[:, :, lo:hi]     # every row sees all of them
     lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
@@ -1340,29 +1399,36 @@ def mla_decode_check(q, k, Dv: int, off: int, scale: float) -> dict:
     nbytes = 2.0 * (B * Hq * Sq * (D + Dv) + B * (hi - lo) * D)
     ops = 2.0 * B * Hq * pairs * (D + Dv)
     b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    rows = Hq // Hkv * Sq                       # query rows per KV head
-    blocks = B * Hkv * -(-rows // fa_ops.MLA_ROWS)
-    plan = fa_ops.plan_mla_splits(Sq, Sk, causal=True, window=None,
-                                  q_offset=off, blocks=blocks, n_sm=n_sm)
+    own_ops = 2.0 * B * Hq * pairs * (D + 2 * Dv)   # S, P_hi·V, P_lo·V
     return {"shape": f"q {list(q.shape)} k {list(k.shape)} v = k[..., :{Dv}] "
                      f"q_offset {off} scale {scale:.6g} bf16",
-            "n_splits": plan.n_splits, "max_abs_err": err,
-            "err_over_bf16_limit": ratio,
+            "n_splits": plan.n_splits, "tiles_per_split": plan.tiles,
+            "block_n": plan.block_n, "max_active_clusters": slots,
+            "max_abs_err": err, "err_over_bf16_limit": ratio,
             "dropped_tile_err_over_bf16_limit": wrong_ratio,
             "max_abs_plain": float(want.float().abs().max()), "ms": ms,
-            "host_loop_ms": loop_ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3, **rec}
+            "ms_again": ms_again, "host_loop_ms": loop_ms,
+            "old_source": "src/repro_torch/kernels/csrc/flash_mla.cu",
+            "old_ms": old_ms, "speedup_over_old": old_ms / ms,
+            "old_max_abs_err": old_err,
+            "old_err_over_bf16_limit": old_ratio, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": ops / BF16_OPS_PER_S * 1e3,
+            "own_work_floor_ms": own_ops / BF16_OPS_PER_S * 1e3, **rec}
 
 
 def moe_serving(arch: str, layers: int, dense: int | None, batch: int,
                 prompt: int, gen: int, dev, hold_to_plain: bool
                 ) -> tuple[dict, list]:
     """One MoE model at full width and a cut depth: the tail drift on the
-    no-drop variant, held within 1.5 times the plain attention's drift in
-    the same run (``hold_to_plain``) or within the reference's 5e-2, with
-    the published capacity's drift printed; then ``serve_lm`` timed with launch
+    no-drop variant, with its MLA decode calls (if any) held against the
+    plain version call by call, and the drift held within 1.5 times the
+    plain attention's in the same run over :data:`DRIFT_WEIGHT_SEEDS` x
+    :data:`DRIFT_PROMPT_SEEDS` (``hold_to_plain``: the median with the
+    router free, each seed with every token's routes pinned) or within
+    the reference's 5e-2, with the published capacity's drift printed;
+    then ``serve_lm`` timed with launch
     counts zeroed before and read after: every prefill attention call
     through ``flash_prefill.cu``, every decode call through the MLA kernel
     (deepseek-v3) or the split-K decode kernel (arctic), none elsewhere.
@@ -1372,6 +1438,7 @@ def moe_serving(arch: str, layers: int, dense: int | None, batch: int,
     from repro_torch import kernels
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import serve
     from repro_torch.models.transformer import model as tm
 
@@ -1397,24 +1464,72 @@ def moe_serving(arch: str, layers: int, dense: int | None, batch: int,
     tokens = serve.prompt_tokens(cfg, 1, DRIFT_PROMPT, SEED, dev)
     nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
         moe, capacity_factor=moe.n_experts / moe.top_k))
+    orig = tm.attention
+    calls = []                  # (q, k, Dv, kwargs, out): MLA decode calls
+
+    def capture(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        if q.shape[-1] > fa_ops.MAX_HEAD_DIM:
+            calls.append((q.clone(), k.clone(), v.shape[-1], kw, out.clone()))
+        return out
+
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    _, rel = serve.tail_drift(params, nodrop, tokens, LM_TAIL)
+    tm.attention = capture
+    try:
+        _, rel = serve.tail_drift(params, nodrop, tokens, LM_TAIL)
+    finally:
+        tm.attention = orig
     torch.cuda.synchronize()
     n = kernels.launch_counts()
     want = {"flash_attention": layers * (2 + LM_TAIL),
             "flash_attention_prefill": 2 * layers, dec: layers * LM_TAIL}
     check({k: v for k, v in n.items() if v} == want, f"{arch} tail check "
           f"launched {n}, not {want}")
-    orig = tm.attention
-    tm.attention = attention_ref
-    try:
-        _, rel_plain = serve.tail_drift(params, nodrop, tokens, LM_TAIL)
-    finally:
-        tm.attention = orig
-    limit = DRIFT_OVER_PLAIN * rel_plain if hold_to_plain else 5e-2
-    check(rel <= limit, f"{arch} no-drop bf16 tail drift {rel} through the "
-          f"kernels, {rel_plain} through the plain version; limit {limit}")
+    # every MLA call of that decode (routes free) against the plain version
+    check(len(calls) == (layers * LM_TAIL if mla and cfg.mla.kv_lora +
+                         cfg.mla.qk_rope > fa_ops.MAX_HEAD_DIM else 0),
+          f"{arch} tail check made {len(calls)} MLA decode calls")
+    n_calls, call_ratio = len(calls), 0.0
+    for q, k, dv, kw, out in calls:
+        want_o = attention_ref(q, k, k[..., :dv], **kw)
+        err = max_abs_err(out.float(), want_o.float())
+        call_ratio = max(call_ratio, over_bf16_limit(out, want_o))
+        check(err <= 2e-2 and call_ratio <= 1.0, f"{arch} MLA decode call "
+              f"(q_offset {kw['q_offset']}) differs from plain: max abs "
+              f"{err}, {call_ratio} x the bf16 limit")
+    del calls
+
+    def drift(params, toks, plain=False):
+        tm.attention = attention_ref if plain else orig
+        try:
+            return serve.tail_drift(params, nodrop, toks, LM_TAIL)[1]
+        finally:
+            tm.attention = orig
+
+    rel_plain = drift(params, tokens, plain=True)
+    rows = []
+
+    def drift_seeds(params, w_seed):
+        """The no-drop drift through the kernels and the plain version,
+        free and pinned, on every prompt seed of one weight seed."""
+        for p_seed in range(DRIFT_PROMPT_SEEDS):
+            toks = serve.prompt_tokens(cfg, 1, DRIFT_PROMPT, p_seed, dev)
+            row = {"weight_seed": w_seed, "prompt_seed": p_seed,
+                   "free": drift(params, toks),
+                   "free_plain": drift(params, toks, plain=True)}
+            with pinned_routes(params, moe.top_k):
+                row.update(pinned=drift(params, toks),
+                           pinned_plain=drift(params, toks, plain=True))
+            print(f"{arch} no-drop bf16 tail drift: {json.dumps(row)}")
+            rows.append(row)
+
+    if hold_to_plain:
+        drift_seeds(params, SEED)
+    else:
+        check(rel <= 5e-2, f"{arch} no-drop bf16 tail drift {rel} through "
+              f"the kernels ({rel_plain} through the plain version); limit "
+              f"5e-2")
     _, rel_pub = serve.tail_drift(params, cfg, tokens, LM_TAIL)
     serve.generate(params, cfg, serve.prompt_tokens(cfg, batch, 512, SEED,
                                                     dev), 2)   # warm-up
@@ -1461,10 +1576,43 @@ def moe_serving(arch: str, layers: int, dense: int | None, batch: int,
            "tail_rel_err_bf16_no_drop": rel,
            "tail_rel_err_bf16_no_drop_plain_attention": rel_plain,
            "tail_rel_err_bf16_published_capacity": rel_pub,
-           "no_drop_capacity_factor": nodrop.moe.capacity_factor,
-           "phase_s": time.perf_counter() - t_phase}
+           "no_drop_capacity_factor": nodrop.moe.capacity_factor}
     del res
     torch.cuda.empty_cache()
+    if hold_to_plain:
+        for w_seed in DRIFT_WEIGHT_SEEDS[1:]:
+            _, params = serve.load_lm(arch, device=dev, seed=w_seed, cfg=cfg)
+            drift_seeds(params, w_seed)
+            del params
+            torch.cuda.empty_cache()
+        med = {key: statistics.median(r[key] for r in rows)
+               for key in ("free", "free_plain")}
+        ratios = [r["pinned"] / max(r["pinned_plain"], 1e-30) for r in rows]
+        rec["no_drop_drift_seeds"] = {
+            "weight_seeds": list(DRIFT_WEIGHT_SEEDS),
+            "prompt_seeds": DRIFT_PROMPT_SEEDS,
+            "free_median": med["free"],
+            "free_median_plain_attention": med["free_plain"],
+            "free_seeds_over_limit": sum(
+                r["free"] > DRIFT_OVER_PLAIN * r["free_plain"] for r in rows),
+            "free_plain_seeds_over_0_05": sum(r["free_plain"] > 5e-2
+                                              for r in rows),
+            "pinned_max_over_plain": max(ratios),
+            "mla_calls_checked": n_calls,
+            "mla_calls_max_over_bf16_limit": call_ratio}
+        limit = DRIFT_OVER_PLAIN * med["free_plain"]
+        check(med["free"] <= limit, f"{arch} no-drop bf16 tail drift, free "
+              f"routes, median over {len(rows)} seeds: {med['free']} through "
+              f"the kernels, {med['free_plain']} through the plain version; "
+              f"limit {limit}")
+        for r in rows:
+            check(r["pinned"] <= DRIFT_OVER_PLAIN * r["pinned_plain"],
+                  f"{arch} no-drop bf16 tail drift with pinned routes "
+                  f"{r['pinned']} through the kernels, "
+                  f"{r['pinned_plain']} through the plain version (weight "
+                  f"seed {r['weight_seed']}, prompt seed "
+                  f"{r['prompt_seed']}); limit {DRIFT_OVER_PLAIN} x")
+    rec["phase_s"] = time.perf_counter() - t_phase
     print(f"LM serving {arch}: {json.dumps(rec)}")
     return rec, seen
 
@@ -1482,8 +1630,9 @@ def mla_moe_phase(dev) -> tuple[dict, dict]:
     from repro_torch.kernels.flash_attention import attention, attention_ref
 
     # deepseek-v3's absorbed decode differs from its prefill path whatever
-    # computes attention, so its drift is held to the plain version's;
-    # arctic at 2 layers to the reference's 5e-2 (its plain drift may be 0)
+    # computes attention, so its drift (free and pinned routes) is held to
+    # the plain version's; arctic at 2 layers to the reference's 5e-2 (its
+    # plain drift may be 0)
     ds, seen = moe_serving(DS_ARCH, DS_LAYERS, DS_DENSE, DS_BATCH, DS_PROMPT,
                            DS_GEN, dev, hold_to_plain=True)
     ar, _ = moe_serving(AR_ARCH, AR_LAYERS, None, AR_BATCH, AR_PROMPT,
@@ -1550,7 +1699,7 @@ def mla_moe_phase(dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     print(f"MLA prefill shape: {json.dumps(pre)}")
     rec = {"name": "flash_attention_mla", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/flash_mla.cu",
+           "source": "src/repro_torch/kernels/csrc/flash_mla_wgmma.cu",
            "replaces": "src/repro/kernels/flash_attention/flash_attention.py"
                        ":95", "launches": ds["launches"]["flash_attention_mla"],
            "limits": {"bf16": "max abs <= 2e-2, and |kernel - plain| <= "
@@ -1604,6 +1753,7 @@ def main() -> int:
                            ("flash_prefill_f32",
                             "attention_prefill_f32_kernel"),
                            ("flash_mla", "mla_split_kernel"),
+                           ("flash_mla_wgmma", "mla_wgmma_kernel"),
                            ("delta_apply", "delta_apply_fused_kernel"),
                            ("segment_sum", "segment_sum_bucketed_kernel")):
         print_ptxas(_build.logs.get(source, ""), kernel)

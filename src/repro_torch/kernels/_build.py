@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("delta_apply", "flash_attention", "flash_decode", "flash_mla",
-           "flash_prefill", "flash_prefill_f32", "segment_sum")
+           "flash_mla_wgmma", "flash_prefill", "flash_prefill_f32",
+           "segment_sum")
 # -Xptxas -v: ptxas reports each kernel's registers, spills and shared
 # memory; build() keeps that output in ``logs``.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

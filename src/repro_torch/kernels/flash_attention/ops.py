@@ -12,12 +12,14 @@ rows per KV head (:func:`decode_shape`: decode) to the split-K kernel of
 the wgmma/TMA kernel of ``csrc/flash_prefill.cu``; other f32 calls to the
 TF32 tensor-core kernel of ``csrc/flash_prefill_f32.cu``; bf16 calls with
 a head dim past 256 (MLA's absorbed decode, D = 576, Dv = 512) to the
-split-K kernel of ``csrc/flash_mla.cu``.  Both prefill kernels are instantiated
+wgmma/TMA kernel of ``csrc/flash_mla_wgmma.cu``, whose key splits merge in
+a thread block cluster.  Both prefill kernels are instantiated
 at a few head dims and run the smallest that holds the call's
 (:func:`prefill_dims`); TMA zero-fills the columns past the real dims, so
-nothing is padded on the host.  ``csrc/flash_attention.cu``, the first
-design, is no route of :func:`attention`: :func:`_attention_mma` and
-:func:`_attention_simt` keep its kernels callable as yardsticks.
+nothing is padded on the host.  ``csrc/flash_attention.cu`` and
+``csrc/flash_mla.cu``, the first designs, are no route of
+:func:`attention`: :func:`_attention_mma`, :func:`_attention_simt` and
+:func:`_mla_mma` keep their kernels callable as yardsticks.
 :data:`launches` counts launches where they are made and nowhere else:
 ``flash_attention`` every kernel call of :func:`attention`,
 ``flash_attention_prefill``, ``flash_attention_prefill_f32``,
@@ -45,15 +47,19 @@ launches = {"flash_attention": 0, "flash_attention_prefill": 0,
             "flash_attention_mla": 0}
 
 MAX_HEAD_DIM = 256          # the kernel keeps a row's Dv outputs in registers
-# The MLA kernel (csrc/flash_mla.cu), bf16 only: blocks of 64 query rows
-# (heads x Sq) over 32-key tiles (DECODE_TILE), K tiles staged whole in
-# shared memory, the 64 x Dv f32 accumulator split over eight warps by
-# output columns (64 each).  Its head dims: D = kv_lora + qk_rope = 576 at
-# most (a 64-row Q tile and the K ring, about 194 KB of shared memory),
-# Dv = 512.  f32 calls past 256 have no kernel: deepseek-v3's f32 weights
-# would not fit one card at any depth that runs its MoE layers.
+# The MLA kernels, bf16 only, blocks of 64 query rows (heads x Sq) of one KV
+# head.  Their head dims: D = kv_lora + qk_rope = 576 at most, Dv = 512.
+# f32 calls past 256 have no kernel: deepseek-v3's f32 weights would not
+# fit one card at any depth that runs its MoE layers.
 MLA_MAX_D, MLA_MAX_DV = 576, 512
 MLA_ROWS = 64
+# The route's kernel (csrc/flash_mla_wgmma.cu): 64-key K tiles when v is
+# k's first Dv columns (V read from the K tile), 32-key K and V tiles when
+# v is a tensor of its own (kBN); the key splits of a row block form one
+# thread block cluster, at most MLA_MAX_CLUSTER blocks (the portable
+# size), each at least DECODE_MIN_TILES tiles.
+MLA_BLOCK_N, MLA_BLOCK_N_V = 64, 32
+MLA_MAX_CLUSTER = 8
 _MAX_GRID_Y = 65535         # B·Hq blocks on the grid's second axis
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -96,22 +102,29 @@ _DECODE_SIGNATURES = {"flash_decode_launch": [*[_P] * 6, *[_L] * 12,
                                               *[_I] * 10, _F, *[_I] * 5, _P]}
 _MLA_SIGNATURES = {"flash_mla_launch": [*[_P] * 6, *[_L] * 12, *[_I] * 10,
                                         _F, *[_I] * 5, _P]}
+_MLA_WGMMA_SIGNATURES = {
+    "flash_mla_wgmma_launch": [*[_P] * 4, *[_L] * 12, *[_I] * 10, _F,
+                               *[_I] * 5, _P],
+    "flash_mla_wgmma_max_clusters": [_I, _I, ctypes.POINTER(ctypes.c_int)]}
+_max_clusters: dict[tuple[int, int, bool], int] = {}   # (device, n, v_in_k)
 
 
 class SplitPlan(NamedTuple):
     """The visible keys ``[lo, hi)`` of a call cut into ``n_splits``
-    chunks of at most ``tiles`` key tiles (:data:`DECODE_TILE` keys),
-    inner boundaries on tile multiples."""
+    chunks of at most ``tiles`` key tiles of ``block_n`` keys (the
+    kernel's tile: :data:`DECODE_TILE`, or :func:`mla_block_n` for
+    ``flash_mla_wgmma.cu``), inner boundaries on tile multiples."""
     lo: int
     hi: int
     tiles: int
     n_splits: int
+    block_n: int = DECODE_TILE
 
     def bounds(self) -> list[tuple[int, int]]:
         """``(begin, end)`` of each split, as the kernel computes them."""
-        t0 = self.lo // DECODE_TILE
-        return [(max(self.lo, (t0 + s * self.tiles) * DECODE_TILE),
-                 min(self.hi, (t0 + (s + 1) * self.tiles) * DECODE_TILE))
+        n, t0 = self.block_n, self.lo // self.block_n
+        return [(max(self.lo, (t0 + s * self.tiles) * n),
+                 min(self.hi, (t0 + (s + 1) * self.tiles) * n))
                 for s in range(self.n_splits)]
 
 
@@ -221,17 +234,57 @@ def plan_mla_splits(Sq: int, Sk: int, *, causal: bool, window: int | None,
                      max(1, n_sm // max(blocks, 1)))
 
 
+def mla_block_n(v_in_k: bool) -> int:
+    """Keys a tile of ``flash_mla_wgmma.cu``'s instantiation for the call:
+    64 when v is k's first columns, 32 with a V ring of its own."""
+    return MLA_BLOCK_N if v_in_k else MLA_BLOCK_N_V
+
+
+def mla_smem_bytes(v_in_k: bool) -> int:
+    """Shared memory of a ``flash_mla_wgmma.cu`` block (``Smem::kBytes``):
+    Q's 64 x 576 bf16 tile, a 2-stage ring of K tiles (and of V tiles of
+    512 columns when v is a tensor of its own), P_hi (and P_lo, which
+    otherwise lives in the K tile's RoPE chunk) as 64 x 64 bf16, the row
+    statistics (m and the rescale factor, 2 x 2 x 64 f32), 4 mbarriers
+    and 1,024 bytes to align the base to the swizzle atom."""
+    n = mla_block_n(v_in_k)
+    k = n * MLA_MAX_D
+    v = 0 if v_in_k else n * MLA_MAX_DV
+    p = MLA_ROWS * 64 * (1 if v_in_k else 2)
+    stats, bars = 2 * 2 * MLA_ROWS * 4, 4 * 8
+    return 1024 + 2 * (MLA_ROWS * MLA_MAX_D + 2 * (k + v) + p) + stats + bars
+
+
+def plan_mla_wgmma_splits(Sq: int, Sk: int, *, causal: bool,
+                          window: int | None, q_offset: int, blocks: int,
+                          block_n: int, max_clusters) -> SplitPlan:
+    """The split plan of ``flash_mla_wgmma.cu``.  One block fills an SM (its
+    shared memory) and a row block's splits form one cluster, so the
+    cluster size is the largest ``n <= MLA_MAX_CLUSTER`` at which all
+    ``blocks`` clusters (blocks = B · Hkv · row blocks of
+    :data:`MLA_ROWS`) are resident at once, ``max_clusters(n) >= blocks``
+    (``max_clusters`` is what ``cudaOccupancyMaxActiveClusters`` reports
+    for the card), and 1 when none is; the visible keys are cut into that
+    many runs of whole ``block_n``-key tiles, each at least
+    :data:`DECODE_MIN_TILES` tiles."""
+    want = next((n for n in range(MLA_MAX_CLUSTER, 1, -1)
+                 if max_clusters(n) >= blocks), 1)
+    return _cut_keys(Sq, Sk, causal, window, q_offset, want, block_n)
+
+
 def _cut_keys(Sq: int, Sk: int, causal: bool, window: int | None,
-              q_offset: int, want: int) -> SplitPlan:
+              q_offset: int, want: int, tile: int = DECODE_TILE
+              ) -> SplitPlan:
     """The call's visible keys cut into about ``want`` splits of whole
-    tiles, each at least :data:`DECODE_MIN_TILES` tiles."""
+    ``tile``-key tiles, each at least :data:`DECODE_MIN_TILES` tiles.  A
+    call that sees no key gets one empty split."""
     lo, hi = visible_range(Sq, Sk, causal=causal, window=window,
                            q_offset=q_offset)
     if hi == lo:
-        return SplitPlan(lo, hi, 1, 1)
-    n_tiles = -(-hi // DECODE_TILE) - lo // DECODE_TILE
+        return SplitPlan(lo, hi, 1, 1, tile)
+    n_tiles = -(-hi // tile) - lo // tile
     tiles = max(DECODE_MIN_TILES, -(-n_tiles // want))
-    return SplitPlan(lo, hi, tiles, -(-n_tiles // tiles))
+    return SplitPlan(lo, hi, tiles, -(-n_tiles // tiles), tile)
 
 
 def _aligned(t: torch.Tensor, unit: int) -> bool:
@@ -415,22 +468,85 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ws.data_ptr(), ws[rows * Dv:].data_ptr(),
             *_strides(q, k, v, out), *sizes,
-            *flags, *plan, _DTYPES[q.dtype],
+            *flags, plan.lo, plan.hi, plan.tiles, plan.n_splits,
+            _DTYPES[q.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "flash_decode", err)
     launches["flash_attention_decode"] += 1
     return out
 
 
+def _v_in_k(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """True when ``v`` is a view of ``k``'s first columns (MLA's absorbed
+    decode passes ``k_cat[..., :kv_lora]``): the MLA kernels then read V
+    from K's tile in shared memory and load no V tile."""
+    return (v.data_ptr() == k.data_ptr() and v.shape[-1] <= k.shape[-1] and
+            v.stride()[:3] == k.stride()[:3])
+
+
+def mla_cluster_slots(dev, n: int, v_in_k: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` on ``dev`` for clusters of ``n``
+    blocks of ``flash_mla_wgmma.cu``'s instantiation for ``v_in_k``: how
+    many the card holds at once, which :func:`_mla` plans by.  Asked once
+    per device; builds the kernel if needed."""
+    dev = torch.device(dev)
+    key = (dev.index, n, v_in_k)
+    if key not in _max_clusters:
+        lib = _build.load("flash_mla_wgmma", _MLA_WGMMA_SIGNATURES)
+        count = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.flash_mla_wgmma_max_clusters(n, int(v_in_k),
+                                                   ctypes.byref(count))
+        _build.check(lib, "flash_mla_wgmma_max_clusters", err)
+        _max_clusters[key] = count.value
+    return _max_clusters[key]
+
+
 def _mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
          flags: tuple) -> torch.Tensor:
-    """Launch the split-K MLA kernel and its combine (``csrc/flash_mla.cu``)
-    on the arguments :func:`kernel_args` gave.  When ``v`` is a view of
-    ``k``'s first Dv columns (MLA's absorbed decode passes
-    ``k_cat[..., :kv_lora]``) the kernel reads V from K's tile in shared
-    memory and loads no V tile."""
-    lib = _build.load("flash_mla", _MLA_SIGNATURES)
+    """Launch ``csrc/flash_mla_wgmma.cu`` on the arguments
+    :func:`kernel_args` gave: one launch, the key splits of each row block
+    merged in its cluster (:func:`plan_mla_wgmma_splits`)."""
+    lib = _build.load("flash_mla_wgmma", _MLA_WGMMA_SIGNATURES)
     B, Hq, Hkv, Sq, Sk, D, Dv = sizes
+    causal, win, off, _ = flags
+    dev = q.device
+    v_in_k = _v_in_k(k, v)
+    row_blocks = -(-(Hq // Hkv) * Sq // MLA_ROWS)
+    plan = plan_mla_wgmma_splits(
+        Sq, Sk, causal=bool(causal), window=win or None, q_offset=off,
+        blocks=B * Hkv * row_blocks, block_n=mla_block_n(v_in_k),
+        max_clusters=lambda n: mla_cluster_slots(dev, n, v_in_k))
+    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_mla_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *_strides(q, k, v, out), *sizes, *flags, plan.lo, plan.hi,
+            plan.tiles, plan.n_splits, int(v_in_k),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "flash_mla_wgmma", err)
+    launches["flash_attention_mla"] += 1
+    return out
+
+
+def _mla_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True, window: int | None = None,
+             q_offset: int = 0, scale: float | None = None) -> torch.Tensor:
+    """CUDA tensors through ``csrc/flash_mla.cu``, the first MLA design
+    (``mma.sync`` on 32-key tiles, an f32 workspace and a combine launch),
+    at the calls the route ``flash_mla`` takes: the yardstick that
+    ``chip_smoke.py`` and the card tests time beside
+    ``flash_mla_wgmma.cu``.  Counts no launch; no route of
+    :func:`attention` calls it."""
+    dv = v.shape[-1]
+    q, k, v, sizes, flags = kernel_args(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        scale=scale)
+    B, Hq, Hkv, Sq, Sk, D, Dv = sizes
+    if route(Sq, Hq, Hkv, D, Dv, q.dtype) != "flash_mla":
+        raise ValueError(f"flash_mla.cu takes bf16 past a head dim of "
+                         f"{MAX_HEAD_DIM}, got {q.dtype} D={D}, Dv={Dv}")
+    lib = _build.load("flash_mla", _MLA_SIGNATURES)
     causal, win, off, _ = flags
     dev = q.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -438,8 +554,6 @@ def _mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
     plan = plan_mla_splits(Sq, Sk, causal=bool(causal), window=win or None,
                            q_offset=off, blocks=B * Hkv * row_blocks,
                            n_sm=n_sm)
-    v_in_k = (v.data_ptr() == k.data_ptr() and Dv <= D and
-              v.stride()[:3] == k.stride()[:3])
     out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=dev)
     rows = B * Hq * Sq * plan.n_splits
     ws = torch.empty(rows * (Dv + 2), dtype=torch.float32, device=dev)
@@ -448,8 +562,8 @@ def _mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ws.data_ptr(), ws[rows * Dv:].data_ptr(),
             *_strides(q, k, v, out), *sizes,
-            *flags, *plan, int(v_in_k),
+            *flags, plan.lo, plan.hi, plan.tiles, plan.n_splits,
+            int(_v_in_k(k, v)),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "flash_mla", err)
-    launches["flash_attention_mla"] += 1
-    return out
+    return out if out.shape[-1] == dv else out[..., :dv]

@@ -234,7 +234,9 @@ def test_no_fallback_to_plain(monkeypatch, Sq, source):
     counted.  Sq = 4 rows on one KV head takes the decode kernel, Sq = 40
     in f32 at D = 16 the TF32 prefill kernel, Sq = 40 in bf16 at D = 64
     the wgmma/TMA prefill kernel, Sq = 1 in bf16 at MLA's D = 576 the MLA
-    kernel."""
+    kernel (the route ``flash_mla``, built from ``flash_mla_wgmma.cu``)."""
+    built = {"flash_mla": "flash_mla_wgmma"}.get(source, source)
+
     def failed_build(name, signatures):
         raise RuntimeError(f"nvcc {name}.cu failed")
 
@@ -247,7 +249,7 @@ def test_no_fallback_to_plain(monkeypatch, Sq, source):
         x = torch.zeros(1, 1, Sq, 576, dtype=torch.bfloat16)
     else:
         x = torch.zeros(1, 1, Sq, 16)
-    with pytest.raises(RuntimeError, match=f"nvcc {source}.cu failed"):
+    with pytest.raises(RuntimeError, match=f"nvcc {built}.cu failed"):
         attention(x, x, x[..., :512])
     assert launch_counts() == before
 
@@ -474,19 +476,37 @@ PLAN_CASES = [
 ]
 
 
+def _gpc_clusters(n: int) -> int:
+    """Clusters of ``n`` one-SM blocks resident at once on a card of 132
+    SMs in eight GPCs of 18, 18 and six of 16 (a cluster lies in one
+    GPC): what ``cudaOccupancyMaxActiveClusters`` reports, modelled."""
+    return sum(sms // n for sms in (18, 18, 16, 16, 16, 16, 16, 16))
+
+
 @pytest.mark.parametrize("case", PLAN_CASES)
-@pytest.mark.parametrize("planner", ["plan_splits", "plan_mla_splits"])
+@pytest.mark.parametrize("planner", ["plan_splits", "plan_mla_splits",
+                                     "plan_mla_wgmma_splits"])
 def test_split_planner(case, planner):
     """The splits cover exactly the visible keys (the union of what the
     rows see, from the mask itself), contiguous, inner boundaries on
-    32-key tiles, never past q_offset + Sq, and a split reads at least 2
-    tiles; where the keys allow 2 blocks per SM, the decode kernel's call
-    has at least one per SM, and the MLA kernel's (one block an SM) stays
-    within one wave of ``n_sm`` blocks and fills at least 80 % of it
-    (``n_sm // blocks`` splits wanted, whole tiles each)."""
+    key tiles (32 keys; 64 for ``flash_mla_wgmma.cu``), never past
+    q_offset + Sq, and a split reads at least 2 tiles; where the keys
+    allow 2 blocks per SM, the decode kernel's call has at least one per
+    SM, ``flash_mla.cu``'s (one block an SM) stays within one wave of
+    ``n_sm`` blocks and fills at least 80 % of it (``n_sm // blocks``
+    splits wanted, whole tiles each), and ``flash_mla_wgmma.cu``'s splits
+    form one cluster of at most 8 blocks, as many as the keys allow while
+    all ``blocks`` clusters stay resident at once (:func:`_gpc_clusters`)."""
     Sq, Sk, causal, window, off, blocks = case
-    plan = getattr(fa_ops, planner)(Sq, Sk, causal=causal, window=window,
-                                    q_offset=off, blocks=blocks, n_sm=132)
+    kw = dict(causal=causal, window=window, q_offset=off, blocks=blocks)
+    if planner == "plan_mla_wgmma_splits":
+        plan = fa_ops.plan_mla_wgmma_splits(
+            Sq, Sk, block_n=fa_ops.MLA_BLOCK_N, max_clusters=_gpc_clusters,
+            **kw)
+        tile = fa_ops.MLA_BLOCK_N
+    else:
+        plan = getattr(fa_ops, planner)(Sq, Sk, n_sm=132, **kw)
+        tile = fa_ops.DECODE_TILE
     assert all(isinstance(x, int) for x in plan)
     seen = visible(Sq, Sk, causal=causal, window=window,
                    q_offset=off).any(dim=0).nonzero().flatten().tolist()
@@ -497,7 +517,6 @@ def test_split_planner(case, planner):
         return
     assert (plan.lo, plan.hi) == (seen[0], seen[-1] + 1)
     assert bounds[0][0] == plan.lo and bounds[-1][1] == plan.hi
-    tile = fa_ops.DECODE_TILE
     for (b0, e0), (b1, _) in zip(bounds, bounds[1:]):
         assert e0 == b1 and e0 % tile == 0
     assert all(e > b for b, e in bounds)
@@ -506,7 +525,13 @@ def test_split_planner(case, planner):
         assert plan.hi <= off + Sq
     n_tiles = -(-plan.hi // tile) - plan.lo // tile
     assert plan.tiles >= min(fa_ops.DECODE_MIN_TILES, n_tiles)
-    if n_tiles >= 2 * 2 * 132 // blocks:       # keys enough for 2 per SM
+    if planner == "plan_mla_wgmma_splits":
+        assert plan.n_splits <= fa_ops.MLA_MAX_CLUSTER
+        assert _gpc_clusters(plan.n_splits) >= blocks      # one wave
+        fits = max(n for n in range(1, 9) if _gpc_clusters(n) >= blocks)
+        assert plan.n_splits == min(fits, -(-n_tiles // plan.tiles))
+        assert plan.tiles == max(2, -(-n_tiles // fits))
+    elif n_tiles >= 2 * 2 * 132 // blocks:     # keys enough for 2 per SM
         if planner == "plan_splits":
             assert blocks * plan.n_splits >= 132
         else:
@@ -533,6 +558,73 @@ def test_mla_planner_at_deepseek_decode():
     plan = fa_ops.plan_mla_splits(1, 4128, causal=True, window=None,
                                   q_offset=4100, blocks=8 * 2, n_sm=132)
     assert plan == fa_ops.SplitPlan(0, 4101, 17, 8)
+
+
+def test_route_takes_mla_shapes():
+    """``ops.route`` sends every call of the card suite's ``MLA_SHAPES``
+    (the calls ``flash_mla_wgmma.cu`` is held to on the card) to the MLA
+    kernel in bf16 and raises for them in f32, and sends no call at head
+    dims up to 256 there: the shapes of this file's sweeps and split-K
+    cases and the archs' prefill and decode, in both dtypes."""
+    from test_torch_cuda import MLA_SHAPES
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for B, Hq, Hkv, Sq, Sk, D, Dv, *_ in MLA_SHAPES:
+        assert fa_ops.route(Sq, Hq, Hkv, D, Dv, bf16) == "flash_mla"
+        with pytest.raises(ValueError, match="no attention kernel"):
+            fa_ops.route(Sq, Hq, Hkv, D, Dv, f32)
+    others = [(Sq, Hq, Hkv, D, Dv) for B, Hq, Hkv, Sq, Sk, D, Dv, *_ in
+              SHAPES + TWO_TERM_SHAPES + SPLITK_SHAPES]
+    for cfg, *_ in LM_ARCHS.values():
+        for Sq in (1, 4096):
+            others.append((Sq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                           cfg.head_dim))
+    for call in others:
+        for dtype in (bf16, f32):
+            assert fa_ops.route(*call, dtype) != "flash_mla", call
+
+
+def test_mla_wgmma_planner_at_deepseek_decode():
+    """deepseek-v3's absorbed decode in the smoke run through
+    ``flash_mla_wgmma.cu``: B = 8, 128 query heads on one KV head (two
+    row blocks of 64), 4,101 visible keys of the 4,128-key cache: 65
+    tiles of 64 keys in 8 splits of 9 tiles (the last split 69 keys, 2
+    tiles), one cluster of 8 per row block, 128 blocks, where the card
+    holds 16 clusters of 8 at once (:func:`_gpc_clusters`).  The H100 the
+    smoke ran on reports (``cudaOccupancyMaxActiveClusters``) 132, 66, 39,
+    30, 22, 17, 15 and 15 clusters of 1 to 8 blocks: there clusters of 6
+    (11 tiles each, the last 10) keep the 16 row blocks in one wave."""
+    kw = dict(causal=True, window=None, q_offset=4100, blocks=8 * 2,
+              block_n=fa_ops.MLA_BLOCK_N)
+    plan = fa_ops.plan_mla_wgmma_splits(1, 4128, max_clusters=_gpc_clusters,
+                                        **kw)
+    assert plan == fa_ops.SplitPlan(0, 4101, 9, 8, 64)
+    assert plan.bounds()[-1] == (4032, 4101)
+    h100 = (132, 66, 39, 30, 22, 17, 15, 15)
+    plan = fa_ops.plan_mla_wgmma_splits(
+        1, 4128, max_clusters=lambda n: h100[n - 1], **kw)
+    assert plan == fa_ops.SplitPlan(0, 4101, 11, 6, 64)
+    assert plan.bounds()[-1] == (3520, 4101)
+
+
+@pytest.mark.parametrize("v_in_k", [True, False])
+def test_mla_smem_bytes(v_in_k):
+    """Each instantiation of ``flash_mla_wgmma.cu`` fits the 232,448 bytes
+    of shared memory a block may have on the H100: 231,456 for both
+    (``Smem::kBytes``: with V in K, Q 73,728 + 2 K tiles of 64 x 576 +
+    P_hi 8,192; with a V of its own, 2 K and 2 V tiles of 32 keys + P_hi
+    and P_lo; then 1,024 of row statistics, 32 of barriers and 1,024 of
+    alignment).  The straightforward layout, P_lo in a buffer of its own
+    beside 64-key tiles, would not fit; its merge region (a 64 x 520 f32
+    partial and the row data) fits in Q and the K ring."""
+    n = fa_ops.mla_block_n(v_in_k)
+    assert n == (64 if v_in_k else 32)
+    got = fa_ops.mla_smem_bytes(v_in_k)
+    assert got == 231_456 <= 232_448
+    if v_in_k:
+        assert got + 64 * 64 * 2 > 232_448
+    merge = 4 * (64 * 520 + 3 * 64 + 64 * 8)
+    assert merge <= 2 * (64 * 576 + 2 * n * 576)
 
 
 def test_decode_shape():
@@ -567,18 +659,23 @@ SPLITK_SHAPES = [
 
 
 def _plans(Sq, Sk, window, q_offset, blocks):
-    """Three cuts of the keys: the planner's; the planner's with empty
-    splits between (and one past every key); and a cut at odd places."""
+    """Four cuts of the keys: the decode planner's; the same with empty
+    splits between (and one past every key); ``flash_mla_wgmma.cu``'s
+    planner's (64-key tiles, one cluster); and a cut at odd places."""
     planned = fa_ops.plan_splits(Sq, Sk, causal=True, window=window,
                                  q_offset=q_offset, blocks=blocks,
                                  n_sm=132).bounds()
+    cluster = fa_ops.plan_mla_wgmma_splits(
+        Sq, Sk, causal=True, window=window, q_offset=q_offset, blocks=blocks,
+        block_n=fa_ops.MLA_BLOCK_N, max_clusters=_gpc_clusters).bounds()
     with_empty = [(0, 0)]
     for b, e in planned:
         with_empty += [(b, e), (e, e)]
     with_empty.append((Sk, Sk + 40))
     cuts = [0, 7, 7, 45, Sk // 2 + 3, Sk]
     odd = list(zip(cuts, cuts[1:]))
-    return {"planned": planned, "with_empty": with_empty, "odd": odd}
+    return {"planned": planned, "with_empty": with_empty,
+            "cluster": cluster, "odd": odd}
 
 
 @pytest.mark.parametrize("shape", SPLITK_SHAPES)

@@ -16,7 +16,9 @@ cache slices, stablelm's D = 160 through it (the (192, 192)
 instantiation, TMA filling the columns past 160), the TF32 f32 prefill
 kernel on the same cases and on few-row calls just past the decode limit,
 the old kernels of ``flash_attention.cu`` (kept as yardsticks) at
-gemma3-1b widths, and a reduced LM on the card; for the temporal engine,
+gemma3-1b widths, MLA's absorbed decode through ``flash_mla_wgmma.cu``
+(its cluster merge at 3, 7 and 8 splits) and ``flash_mla.cu`` beside
+it, and a reduced LM on the card; for the temporal engine,
 ``evolve_intervals_torch`` (monolithic and streamed), the batch loader
 and both fixpoint solvers on the card against the port's own CPU runs;
 for sharded retrieval, the word-cyclic ``[P, K, Wp]`` stacks through the
@@ -686,40 +688,94 @@ MLA_SHAPES = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", MLA_SHAPES)
-def test_cuda_mla_matches_plain(cuda_device, shape):
-    """The MLA kernel (bf16, a head dim past 256) against the plain version,
-    element by element within 2^-6·|plain| + 1e-5 (as the prefill kernel:
-    f32 sums, p as bf16 hi + lo, one rounding to bf16 each); rows that see
-    no key exactly 0.  v is either k's first Dv columns (a view: the
-    kernel reads V from K's tiles) or a tensor of its own.  Only
-    ``flash_attention`` and ``flash_attention_mla`` count the call."""
+def _mla_inputs(shape, dev):
+    """Seeded bf16 q, k, v of an ``MLA_SHAPES`` case on the host and on
+    ``dev`` (v as k's first Dv columns when ``v_in_k``), and the call's
+    keywords."""
     B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff, v_in_k = shape
     g = torch.Generator().manual_seed(Sq * Sk + D + Dv)
     q, k = (torch.randn(s, generator=g).bfloat16()
             for s in ((B, Hq, Sq, D), (B, Hkv, Sk, D)))
     v = torch.randn(B, Hkv, Sk, Dv, generator=g).bfloat16()
-    assert fa_ops.route(Sq, Hq, Hkv, D, Dv, q.dtype) == "flash_mla"
-    qd, kd = q.to(cuda_device), k.to(cuda_device)
-    vd = kd[..., :Dv] if v_in_k else v.to(cuda_device)
+    qd, kd = q.to(dev), k.to(dev)
+    vd = kd[..., :Dv] if v_in_k else v.to(dev)
     if v_in_k:
         v = k[..., :Dv]
     kw = dict(causal=causal, window=window, q_offset=qoff,
               scale=192 ** -0.5)
-    n0 = launch_counts()
-    got = attention(qd, kd, vd, **kw)
-    torch.cuda.synchronize()
-    n1 = launch_counts()
-    assert {n: n1[n] - n0[n] for n in n0 if n1[n] != n0[n]} == {
-        "flash_attention": 1, "flash_attention_mla": 1}
-    want = attention_ref(q, k, v, **kw)
+    return (q, k, v), (qd, kd, vd), kw
+
+
+def _assert_mla_close(got, want, shape):
+    """Element by element within 2^-6·|plain| + 1e-5 (f32 sums, p as bf16
+    hi + lo, one rounding to bf16); rows that see no key exactly 0."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff, v_in_k = shape
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2 ** -6,
                                atol=1e-5)
     keyless = ~visible(Sq, Sk, causal=causal, window=window,
                        q_offset=qoff).any(dim=1)
     assert torch.all(got.cpu()[:, :, keyless] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+def test_cuda_mla_matches_plain(cuda_device, shape):
+    """The MLA kernel that ``attention()`` routes bf16 calls past a head dim
+    of 256 to (``flash_mla_wgmma.cu``) against the plain version
+    (:func:`_assert_mla_close`).  v is either k's first Dv columns (a view:
+    the kernel reads V from K's 64-key tiles) or a tensor of its own (its
+    32-key instantiation with a V ring).  Only ``flash_attention`` and
+    ``flash_attention_mla`` count the call."""
+    (q, k, v), (qd, kd, vd), kw = _mla_inputs(shape, cuda_device)
+    B, Hq, Hkv, Sq, Sk, D, Dv = shape[:7]
+    assert fa_ops.route(Sq, Hq, Hkv, D, Dv, q.dtype) == "flash_mla"
+    n0 = launch_counts()
+    got = attention(qd, kd, vd, **kw)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert {n: n1[n] - n0[n] for n in n0 if n1[n] != n0[n]} == {
+        "flash_attention": 1, "flash_attention_mla": 1}
+    _assert_mla_close(got, attention_ref(q, k, v, **kw), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+def test_cuda_mla_mma_matches_plain(cuda_device, shape):
+    """The first MLA kernel (``flash_mla.cu``, a yardstick now: no route
+    takes it) through ``ops._mla_mma`` on the same shapes, within the same
+    limits; it counts no launch."""
+    (q, k, v), (qd, kd, vd), kw = _mla_inputs(shape, cuda_device)
+    n0 = launch_counts()
+    got = fa_ops._mla_mma(qd, kd, vd, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == n0
+    _assert_mla_close(got, attention_ref(q, k, v, **kw), shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sk,v_in_k,n_splits", [(300, True, 3),
+                                                (800, True, 7),
+                                                (1000, False, 8)])
+def test_cuda_mla_cluster_splits(cuda_device, Sk, v_in_k, n_splits):
+    """Key splits merged in a thread block cluster: at B = 2, 128 heads
+    (4 row blocks) the card holds clusters of up to 8 blocks in one wave,
+    so the plan cuts 5, 13 or 32 tiles (64 keys; 32 with a V of its own)
+    into 3, 7 or 8 splits whose last is shorter than the others, and the
+    merged result matches the plain version."""
+    shape = (2, 128, 1, 1, Sk, 576, 512, True, None, Sk - 1, v_in_k)
+    (q, k, v), (qd, kd, vd), kw = _mla_inputs(shape, cuda_device)
+    block_n = fa_ops.mla_block_n(v_in_k)
+    plan = fa_ops.plan_mla_wgmma_splits(
+        1, Sk, causal=True, window=None, q_offset=Sk - 1, blocks=4,
+        block_n=block_n,
+        max_clusters=lambda n: fa_ops.mla_cluster_slots(cuda_device, n,
+                                                        v_in_k))
+    bounds = plan.bounds()
+    assert plan.n_splits == n_splits and bounds[-1][1] == Sk
+    assert bounds[-1][1] - bounds[-1][0] < plan.tiles * block_n
+    got = attention(qd, kd, vd, **kw)
+    _assert_mla_close(got, attention_ref(q, k, v, **kw), shape)
 
 
 @pytest.mark.cuda

@@ -13,10 +13,10 @@ and 5e-2 in bf16, the bounds of ``tests/test_torch_lm.py``.
 The attention call of the absorbed decode, at the published D = 576 /
 Dv = 512 (v the first 512 columns of k, as the port passes it) and at the
 reduced latent shape, goes through the port's plain version on the CPU
-(the CUDA kernel ``flash_mla.cu`` is held to it on the card): against the
-JAX package's ``attention`` with ``impl="xla"`` and ``impl="pallas"`` in
-interpret mode, at the JAX suite's tolerances (3e-5 in f32, 2e-2 in
-bf16).
+(the CUDA kernel ``flash_mla_wgmma.cu`` is held to it on the card):
+against the JAX package's ``attention`` with ``impl="xla"`` and
+``impl="pallas"`` in interpret mode, at the JAX suite's tolerances (3e-5
+in f32, 2e-2 in bf16).
 """
 import dataclasses
 
