@@ -54,6 +54,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    through 2 ``repro_torch.launch.shardd`` processes with 2 replicas each
    (every child's ``/proc/<pid>/cmdline`` read), one of them SIGKILLed
    before a last query that must still equal ``replay`` and fail over;
+   last, the rank-local form: 2 ``gloo`` ranks (processes sharing the
+   card) over 8 ``word_cyclic`` partitions of a ``churn_network`` history,
+   each lowering and landing its own 4 rows through
+   ``execute_singlepoint_sharded_rank`` (one chain launch per plane, batch
+   4, counts zeroed before and read after in each rank) at 8 timepoints,
+   masks equal to ``replay`` and to the one-launch path on every rank;
 5. retrieval kernels: each against its plain PyTorch version on the card,
    at full width (chain W = 2^21 words, K = 16, B = 8; fused W = 2^21,
    K = 16 with weights, ``live`` on and off; segment-sum on the degree
@@ -148,6 +154,27 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    [8, 128, 4096, 192]) through ``flash_prefill.cu`` against the plain
    version on 4 of its heads.
 
+9. training (the slice's main path): the prefill kernels' statistics
+   output (``attention_stats``) at the LM phase's served shapes and at the
+   training step's, bf16 and f32: ``out`` bit for bit against the same
+   launch without statistics, ``(out, m, l)`` against the plain version
+   (m within 1e-5·(1 + |m|), l within 1e-4), both launches and SDPA
+   timed; the attention backward (``attention_bwd``, the reference's
+   chunked recompute in torch ops) timed beside SDPA's backward on the
+   same inputs; reduced gemma3-1b and deepseek-v3 (``mtp`` on, routes
+   pinned) in f32: ``loss_fn``'s gradients on the card within 1e-4 of the
+   CPU's, every attention call through the f32 statistics kernel (counts
+   zeroed before, read after); then gemma3-1b at full width (26 layers, d
+   1152, the tied 262k vocabulary, bf16, AdamW, seeded random weights)
+   through ``launch/train.train``: 8 steps of B 2 x 2,048 on one repeated
+   batch, launch counts zeroed before and read after (52 statistics
+   launches a step: 26 in the forward, 26 when the backward recomputes
+   each layer), ms per step, peak device memory, the loss finite and
+   falling; a crash after the checkpoint at step 4 (``LogFileKV`` in a
+   temporary directory) and the resume, whose losses, parameters and
+   optimizer state equal the uninterrupted run's bit for bit; one pass at
+   ``accum_steps = 4`` (B 8).
+
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -218,6 +245,26 @@ EVOLVE_INTERVALS, EVOLVE_POINTS, CHECK_EVERY, LOADER_BATCH = 8, 32, 4, 8
 # sharded path: 8 word_cyclic storage partitions, as the reference's
 # 8-device retrieval mesh, laid out as 8 rows of one batched chain launch
 SHARD_PARTITIONS = 8
+# training: gemma3-1b at full width through launch/train (the slice's main
+# path: flash_prefill.cu with its statistics output, the chunked backward,
+# AdamW), B 2 x 2,048 a step on one repeated batch; one step at
+# B 8 = TRAIN_ACCUM micro-batches of 2; a crash after a checkpoint and the
+# resume, held bit for bit to the uninterrupted run
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "gemma3-1b", 2, 2048, 8
+TRAIN_LR, TRAIN_ACCUM, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 1e-3, 4, 4, 5
+# reduced models in f32, gradients on the card against the CPU's: every
+# leaf within 1e-4 of its largest magnitude (the CPU tests' bound against
+# JAX: sums in another order; the card's f32 prefill kernel carries its
+# products as three TF32 terms, within 3·2^-22 of f32)
+GRAD_ARCHS, GRAD_TOL = ("gemma3-1b", "deepseek-v3-671b"), 1e-4
+# the kernels' row statistics against the plain version's: m within
+# 1e-5·(1 + |m|) (the log2-domain max times ln 2, a few ulps), l within
+# 1e-4 relative (ex2.approx terms summed in another order over up to
+# 4,128 keys)
+STATS_M_TOL, STATS_L_TOL = 1e-5, 1e-4
+# rank-local sharded retrieval: 2 gloo ranks sharing the card, 8
+# word_cyclic partitions (4 rows a rank), on a churn history
+RANK_WORLD = 2
 
 
 def fail(msg: str) -> None:
@@ -1708,6 +1755,557 @@ def mla_moe_phase(dev) -> tuple[dict, dict]:
     return rec, pre
 
 
+# one rank of the rank-local phase: argv = src, rank, world, port, output
+# directory, partitions
+RANK_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import kernels
+from repro_torch.core import GraphManager, replay
+from repro_torch.data.generators import churn_network
+from repro_torch.runtime import torch_exec as tx
+from repro_torch.storage.kv import MemKV
+
+rank, world, port, out, P = (int(sys.argv[2]), int(sys.argv[3]),
+                             int(sys.argv[4]), sys.argv[5], int(sys.argv[6]))
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=world)
+uni, ev = churn_network(n_initial_edges=2000, n_events=50_000, seed=1)
+gm = GraphManager(uni, ev, store=MemKV(), L=2_000, k=2, cache_bytes=0,
+                  num_partitions=P, partition_fn="word_cyclic",
+                  device="cuda")
+times = sorted({int(t) for t in np.linspace(0, int(ev.time[-1]) + 3, 8)})
+shapes = []
+real = tx.delta_apply_chain_batched
+def spy(b, a, d):
+    shapes.append(list(a.shape))
+    return real(b, a, d)
+tx.delta_apply_chain_batched = spy
+tx.execute_singlepoint_sharded_rank(gm.dg, times[0], partitions=P,
+                                    pool=gm.pool)            # warm-up
+del shapes[:]
+torch.cuda.synchronize()
+kernels.reset_launch_counts()
+t0 = time.perf_counter()
+res = {t: tx.execute_singlepoint_sharded_rank(gm.dg, t, partitions=P,
+                                              pool=gm.pool) for t in times}
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+launches = kernels.launch_counts()
+tx.delta_apply_chain_batched = real
+bad = []
+for t in times:
+    truth = replay(uni, ev, t)
+    one = tx.execute_singlepoint_sharded_torch(gm.dg, t, partitions=P,
+                                               pool=gm.pool)
+    for (got, want, label) in ((res[t], (truth.node_mask, truth.edge_mask),
+                                "replay"), (res[t], one, "one launch")):
+        if not (np.array_equal(got[0], want[0]) and
+                np.array_equal(got[1], want[1])):
+            bad.append(f"{label} at t={t}")
+gm.close()
+with open(f"{out}/rank{rank}.json", "w") as fh:
+    json.dump({"times": times, "bad": bad, "wall_s": wall,
+               "chain_launches": launches["delta_apply_chain"],
+               "other_launches": {k: v for k, v in launches.items()
+                                  if v and k != "delta_apply_chain"},
+               "chain_shapes": shapes,
+               "device": torch.cuda.get_device_name(0)}, fh)
+dist.destroy_process_group()
+"""
+
+
+def rank_phase(src: Path) -> dict:
+    """Rank-local sharded retrieval (``execute_singlepoint_sharded_rank``):
+    RANK_WORLD gloo ranks, each a process on the one card, over 8
+    word_cyclic partitions of a churn history; each rank's launch counts
+    zeroed before and read after its 8 timepoints: 2 chain launches a
+    timepoint, each batch its P / world rows; masks equal to ``replay`` and
+    to the one-launch path on every rank."""
+    import socket
+    import tempfile
+
+    P = SHARD_PARTITIONS
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_CHILD, str(src), str(r),
+             str(RANK_WORLD), str(port), out, str(P)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(RANK_WORLD)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=600)
+                errs.append((p.returncode, err[-2000:]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (rc, err) in enumerate(errs):
+            check(rc == 0, f"rank {r} failed ({rc}): {err}")
+        ranks = [json.loads((Path(out) / f"rank{r}.json").read_text())
+                 for r in range(RANK_WORLD)]
+    for r, res in enumerate(ranks):
+        n = len(res["times"])
+        check(not res["bad"], f"rank {r}: masks differ from {res['bad']}")
+        check(res["chain_launches"] == 2 * n == len(res["chain_shapes"]),
+              f"rank {r}: {res['chain_launches']} chain launches for {n} "
+              f"timepoints")
+        check(all(s[0] == P // RANK_WORLD for s in res["chain_shapes"]),
+              f"rank {r}: chain batches {res['chain_shapes']}")
+        check(not res["other_launches"], f"rank {r} launched "
+              f"{res['other_launches']}")
+    rec = {"world": RANK_WORLD, "partitions": P,
+           "rows_per_rank": P // RANK_WORLD,
+           "timepoints": len(ranks[0]["times"]),
+           "chain_launches_per_rank": [r["chain_launches"] for r in ranks],
+           "wall_s_per_rank": [r["wall_s"] for r in ranks],
+           "phase_s": time.perf_counter() - t0}
+    print(f"rank-local sharded: {json.dumps(rec)}; masks equal replay and "
+          f"the one-launch path on every rank")
+    return rec
+
+
+def profiled_ms(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: the host-clock wall ms (ended
+    by a synchronise), the device's busy ms, and device ms by kind of
+    kernel (the attention kernels, matrix products, the rest)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kind(name: str) -> str:
+        if "attention" in name:
+            return "attention_kernels"
+        if name.startswith("nvjet") or "gemm" in name.lower():
+            return "matrix_products"
+        return "other"
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out = {"wall_ms": wall, "device_busy_ms": 0.0, "attention_kernels": 0.0,
+           "matrix_products": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.self_device_time_total / 1e3
+            out["device_busy_ms"] += ms
+            out[kind(e.key)] += ms
+    out["device_busy_share"] = out["device_busy_ms"] / wall
+    return out
+
+
+def differing_leaf(tree, other):
+    """The path of the first leaf where two trees of tensors differ in a
+    bit (or in dtype or shape), or None."""
+    import torch
+
+    from repro_torch.tree_util import flatten_with_paths
+
+    b = dict(flatten_with_paths(other))
+    for path, x in flatten_with_paths(tree):
+        y = b.get(path)
+        if y is None or x.dtype != y.dtype or x.shape != y.shape:
+            return path
+        if x.is_floating_point():
+            width = {2: torch.int16, 4: torch.int32}[x.element_size()]
+            if not torch.equal(x.view(width), y.view(width)):
+                return path
+        elif not torch.equal(x, y):
+            return path
+    return None
+
+
+class Preempted(Exception):
+    """The training phase's simulated crash."""
+
+
+def stats_case(q, k, v, label: str, kw: dict, iters: int) -> dict:
+    """``attention_stats`` (the prefill kernel of the inputs' dtype with its
+    statistics output) at one shape: ``out`` bit for bit against the
+    launch without statistics (``attention()``), ``(out, m, l)`` against
+    the plain version, and the two launches and SDPA timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention,
+                                                     attention_ref_stats,
+                                                     attention_stats)
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    out, m, l = attention_stats(q, k, v, **kw)
+    plain = attention(q, k, v, **kw)
+    want, wm, wl = attention_ref_stats(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bf16 = q.dtype == torch.bfloat16
+    check(same_bits(out, plain), f"stats {label}: out differs from the "
+          f"launch without statistics")
+    err = max_abs_err(out.float(), want.float())
+    ratio = over_bf16_limit(out, want) if bf16 else None
+    check(err <= (2e-2 if bf16 else 3e-5) and (ratio or 0) <= 1.0,
+          f"stats {label}: out differs from plain ({err}, {ratio})")
+    seen = wl > 0
+    check(torch.equal(l > 0, seen), f"stats {label}: rows with no key")
+    m_err = float(((m - wm).abs() / (1 + wm.abs()))[seen].max())
+    l_err = float(((l - wl).abs() / wl.clamp(min=1e-30))[seen].max())
+    check(m_err <= STATS_M_TOL and l_err <= STATS_L_TOL,
+          f"stats {label}: m off by {m_err}, l by {l_err}")
+    check(bool((m[~seen] == -1e30).all()) and bool((l[~seen] == 0).all()),
+          f"stats {label}: a row with no key keeps m = -1e30, l = 0")
+    del want, wm, wl, plain
+    ms = graph_ms(lambda: attention_stats(q, k, v, **kw), iters)
+    nostats_ms = graph_ms(lambda: attention(q, k, v, **kw), iters)
+    plain_ms = cuda_ms(lambda: attention_ref_stats(q, k, v, **kw), 2,
+                       warmup=1)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    win, off = kw.get("window"), kw.get("q_offset", 0)
+    pairs, lo, hi = visible_span(Sq, Sk, win, off)
+    mask = visible(Sq, hi - lo, causal=True, window=win, q_offset=off - lo,
+                   device=q.device)
+    sdpa_kw = ({"is_causal": True} if Sq == hi - lo and torch.equal(
+        mask, torch.ones_like(mask).tril()) else {"attn_mask": mask})
+    kk, vv = k[:, :, lo:hi], v[:, :, lo:hi]
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, kk, vv, enable_gqa=True, **sdpa_kw), iters)
+    esize = q.element_size()
+    nbytes = (esize * (B * Hq * Sq * (D + Dv) + B * Hkv * (hi - lo) *
+                       (D + Dv)) + 8.0 * B * Hq * Sq)
+    ops = 2.0 * B * Hq * pairs * (D + Dv)
+    b, by = (bound_ms(nbytes, ops, BF16_OPS_PER_S) if bf16 else
+             bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S))
+    return {"shape": f"{label}: q {list(q.shape)} k {list(k.shape)} v "
+                     f"{list(v.shape)} window {win} q_offset {off} "
+                     f"{str(q.dtype).split('.')[-1]}",
+            "ms": ms, "no_stats_ms": nostats_ms, "over_no_stats": ms /
+            nostats_ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": lib_ms, "library_note": "SDPA forward (out alone)",
+            "max_abs_err": err, "err_over_bf16_limit": ratio,
+            "m_err": m_err, "l_err": l_err, "out_equals_no_stats": True}
+
+
+def backward_case(q, k, v, kw: dict) -> dict:
+    """The attention backward (``attention_bwd``: the reference's chunked
+    recompute in torch ops, f32) timed beside SDPA's backward on the same
+    inputs and output gradient; their gradients compared."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_bwd,
+                                                     attention_stats)
+
+    gen = torch.Generator(device=q.device)
+    gen.manual_seed(SEED + 1)
+    out, m, l = attention_stats(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device=q.device).to(q.dtype)
+    grads = attention_bwd(q, k, v, out, m, l, dout, **kw)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                       enable_gqa=True)
+    lib = torch.autograd.grad(o, (qr, kr, vr), dout, retain_graph=True)
+    rel = [max_abs_err(g.float(), w.float()) / float(w.float().abs().max())
+           for g, w in zip(grads, lib)]
+    torch.cuda.synchronize()
+    check(max(rel) <= 5e-2, f"attention_bwd and SDPA's backward disagree "
+          f"({rel})")
+    ms = cuda_ms(lambda: attention_bwd(q, k, v, out, m, l, dout, **kw), 3)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qr, kr, vr), dout, retain_graph=True), 10)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    pairs, _, _ = visible_span(Sq, Sk, None, 0)
+    nbytes = (2.0 * (2 * B * Hq * Sq * (D + Dv) + 2 * B * Hkv * Sk * (D + Dv))
+              + 8.0 * B * Hq * Sq)
+    ops = 2.0 * B * Hq * pairs * (3 * D + 2 * Dv)
+    b, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    return {"shape": f"q {list(q.shape)} k/v {list(k.shape)} causal bf16",
+            "ms": ms, "library_ms": lib_ms, "over_library": ms / lib_ms,
+            "bound_ms": b, "bound_by": by,
+            "rel_err_vs_library": dict(zip(("dq", "dk", "dv"), rel))}
+
+
+def reduced_grads(dev) -> dict:
+    """Reduced gemma3-1b and deepseek-v3 (``mtp`` on, every token's routes
+    pinned) in f32: ``loss_fn``'s gradients on the card against the
+    CPU's, every leaf within GRAD_TOL of its largest magnitude."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree_util import flatten_with_paths, path_name, tree_map
+
+    out = {}
+    for arch in GRAD_ARCHS:
+        cfg = dataclasses.replace(reduced_config(arch), dtype=torch.float32)
+        gen = torch.Generator().manual_seed(SEED)
+        cpu = init_params(tm.param_defs(cfg), gen, "cpu")
+        if cfg.moe is not None:
+            for g in cpu.values():
+                if isinstance(g, dict) and "router_bias" in g:
+                    g["router_bias"].zero_()
+                    g["router_bias"][..., :cfg.moe.top_k] = 2.0
+        card = tree_map(lambda t: t.to(dev), cpu)
+        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (2, 32)))
+        (loss, _), g_cpu = value_and_grad(
+            lambda p, b: tm.loss_fn(p, b, cfg), cpu, {"tokens": tokens})
+        (loss_d, _), g_dev = value_and_grad(
+            lambda p, b: tm.loss_fn(p, b, cfg), card,
+            {"tokens": tokens.to(dev)})
+        want = {path_name(p): x for p, x in flatten_with_paths(g_cpu)}
+        worst, at = 0.0, None
+        for p, x in flatten_with_paths(g_dev):
+            w = want[path_name(p)]
+            scale = float(w.abs().max())
+            err = float((x.cpu() - w).abs().max()) / (scale or 1.0)
+            if err > worst:
+                worst, at = err, path_name(p)
+        check(worst <= GRAD_TOL, f"{arch} reduced f32: gradient {at} off by "
+              f"{worst} of its largest magnitude on the card")
+        check(abs(float(loss_d) - float(loss)) <= 1e-5 * float(loss),
+              f"{arch} reduced f32: loss {float(loss_d)} on the card, "
+              f"{float(loss)} on the CPU")
+        out[arch] = {"worst_leaf_rel_err": worst, "worst_leaf": at,
+                     "loss_card": float(loss_d), "loss_cpu": float(loss),
+                     "mtp": cfg.mtp}
+    return out
+
+
+def train_phase(dev) -> list[dict]:
+    """Training (the slice's main path; see the module docstring): the
+    statistics kernels at their shapes, the backward beside SDPA's, the
+    reduced f32 gradients against the CPU's, then gemma3-1b at full width
+    through ``launch/train``.  Returns the records of the two statistics
+    kernels."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import train as tr
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cfg, _ = get_arch(TRAIN_ARCH)
+    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    # the statistics launches at the served and the training shapes: the
+    # LM phase's local and global prefill (B 8 x 4,096 on the 4,128-key
+    # cache), the training step's (B 2 x 2,048), in bf16 and f32
+    shapes = {"bf16": [], "f32": []}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for label, (B, Sq, Sk), win, iters in (
+                ("served global prefill", (LM_BATCH, LM_PROMPT,
+                                           LM_PROMPT + LM_GEN), None, 4),
+                ("served local prefill", (LM_BATCH, LM_PROMPT,
+                                          LM_PROMPT + LM_GEN), W, 4),
+                ("training global", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ),
+                 None, 10),
+                ("training local", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), W,
+                 10)):
+            if dtype == torch.float32 and label.startswith("served local"):
+                continue
+            q = rand((B, H, Sq, D), dtype)
+            k, v = rand((B, Hkv, Sk, D), dtype), rand((B, Hkv, Sk, D), dtype)
+            shapes[name].append(stats_case(
+                q, k, v, label, {"window": win}, iters if dtype ==
+                torch.bfloat16 else 2))
+            del q, k, v
+            torch.cuda.empty_cache()
+    q = rand((TRAIN_BATCH, H, TRAIN_SEQ, D), torch.bfloat16)
+    k = rand((TRAIN_BATCH, Hkv, TRAIN_SEQ, D), torch.bfloat16)
+    v = rand((TRAIN_BATCH, Hkv, TRAIN_SEQ, D), torch.bfloat16)
+    bwd = backward_case(q, k, v, {"causal": True})
+    del q, k, v
+    print(f"train: statistics launches {json.dumps(shapes)}; "
+          f"attention backward {json.dumps(bwd)}")
+
+    kernels.reset_launch_counts()
+    grads = reduced_grads(dev)
+    torch.cuda.synchronize()
+    n_grad = kernels.launch_counts()
+    check(n_grad["flash_attention_prefill_f32_stats"] > 0 and
+          n_grad["flash_attention_prefill_f32_stats"] ==
+          n_grad["flash_attention_prefill_f32"] ==
+          n_grad["flash_attention"], f"reduced f32 gradients: every "
+          f"attention call through the f32 statistics kernel ({n_grad})")
+    print(f"train: reduced f32 gradients on the card against the CPU's "
+          f"{json.dumps(grads)}; launches {json.dumps(n_grad)}")
+
+    # the main path: launch/train at full width on one repeated batch
+    rng = np.random.default_rng(SEED)
+    batch = tr.synth_batch(TRAIN_ARCH, cfg, rng, TRAIN_BATCH, TRAIN_SEQ,
+                           dev)
+    L = cfg.n_layers
+
+    def run(batch=TRAIN_BATCH, log=lambda *_: None, **kw):
+        return tr.train(TRAIN_ARCH, full_config=True, batch=batch,
+                        seq=TRAIN_SEQ, lr=TRAIN_LR, device=dev, log=log,
+                        **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    main = run(steps=TRAIN_STEPS, data=lambda step: batch)
+    torch.cuda.synchronize()
+    n_main = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = main["losses"]
+    step_ms = [s * 1e3 for s in main["step_s"]]
+    steady_ms = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train: {TRAIN_ARCH} at full width ({L} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}, bf16, AdamW), B "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} a step on one batch, {TRAIN_STEPS} "
+          f"steps: losses {losses}; ms per step {step_ms} (median after the "
+          f"first {steady_ms:.3f}, {tokens / steady_ms * 1e3:.1f} tokens/s); "
+          f"peak {peak:.3f} GiB; launches {json.dumps(n_main)}")
+    # each micro-batch: L forward launches and L more when the backward
+    # recomputes each layer (cfg.remat)
+    want = 2 * L * TRAIN_STEPS
+    check(n_main["flash_attention_prefill_stats"] == want ==
+          n_main["flash_attention_prefill"] == n_main["flash_attention"],
+          f"training launched {n_main}, not {want} statistics launches")
+    check(n_main["flash_attention_decode"] == 0 ==
+          n_main["flash_attention_prefill_f32"], f"training ran other "
+          f"attention kernels: {n_main}")
+    check(all(np.isfinite(losses)), f"training losses {losses}")
+    check(losses[-1] < losses[0], f"the loss does not fall on a repeated "
+          f"batch: {losses}")
+
+    # one more step of the same code under the profiler: device time by
+    # kind of kernel, and the device's busy share of the step's wall
+    from repro_torch.training.optim import OPTIMIZERS, warmup_cosine
+    from repro_torch.training.trainer import make_train_step
+    loss_fn, _ = tr.make_loss(TRAIN_ARCH, cfg)
+    opt = OPTIMIZERS[get_arch(TRAIN_ARCH)[1]](
+        lr=TRAIN_LR, schedule=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
+    step_fn = make_train_step(loss_fn, opt)
+    prof = profiled_ms(lambda: step_fn(main["params"], main["opt_state"],
+                                       batch))
+    print(f"train: one step profiled {json.dumps(prof)}")
+
+    # a crash after the checkpoint at TRAIN_CKPT_EVERY, then the resume
+    def crashing(step):
+        if step == TRAIN_CRASH_AT:
+            raise Preempted(step)
+        return batch
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        said = []
+        try:
+            run(steps=TRAIN_STEPS, data=crashing, ckpt_dir=ckdir,
+                ckpt_every=TRAIN_CKPT_EVERY, log=said.append)
+            fail("the crashing run did not crash")
+        except Preempted:
+            pass
+        save_s = float(next(line for line in said if line.startswith(
+            "checkpoint @")).split()[-2])
+        t0 = time.perf_counter()
+        resumed = run(steps=TRAIN_STEPS, data=lambda step: batch,
+                      ckpt_dir=ckdir, ckpt_every=TRAIN_STEPS + 1)
+        resume_s = time.perf_counter() - t0
+        ck_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*")
+                       if f.is_file())
+    check(resumed["start"] == TRAIN_CKPT_EVERY, f"resumed at "
+          f"{resumed['start']}")
+    check(resumed["losses"] == losses[TRAIN_CKPT_EVERY:], f"resumed losses "
+          f"{resumed['losses']}, uninterrupted {losses}")
+    for tree in ("params", "opt_state"):
+        at = differing_leaf(main[tree], resumed[tree])
+        check(at is None, f"resume differs at {tree} {at}")
+    restore_s = resumed["ckpt_s"]["restore"]
+    del main, resumed
+    torch.cuda.empty_cache()
+
+    # one pass at TRAIN_ACCUM micro-batches of TRAIN_BATCH: 2 steps, the
+    # second timed
+    big = tr.synth_batch(TRAIN_ARCH, cfg, rng, TRAIN_ACCUM * TRAIN_BATCH,
+                         TRAIN_SEQ, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    acc = run(steps=2, accum_steps=TRAIN_ACCUM, batch=TRAIN_ACCUM *
+              TRAIN_BATCH, data=lambda step: big)
+    torch.cuda.synchronize()
+    n_acc = kernels.launch_counts()
+    acc_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(n_acc["flash_attention_prefill_stats"] ==
+          2 * L * TRAIN_ACCUM * 2, f"accumulation launched {n_acc}")
+    check(all(np.isfinite(acc["losses"])), f"accumulation losses "
+          f"{acc['losses']}")
+    acc_ms = acc["step_s"][1] * 1e3
+    del acc, big, batch
+    torch.cuda.empty_cache()
+    train = {
+        "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+        "ms_per_step": step_ms, "steady_ms_per_step": steady_ms,
+        "tokens_per_s": tokens / steady_ms * 1e3, "peak_gib": peak,
+        "accum_steps": TRAIN_ACCUM, "accum_ms_per_step": acc_ms,
+        "accum_tokens_per_s": TRAIN_ACCUM * tokens / acc_ms * 1e3,
+        "accum_peak_gib": acc_peak, "resume_bit_for_bit": True,
+        "checkpoint_bytes": ck_bytes, "save_s": save_s,
+        "resume_run_s": resume_s, "restore_s": restore_s,
+        "profiled_step": prof, "reduced_f32_grads": grads,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"train: resumed after a crash at step {TRAIN_CRASH_AT} from the "
+          f"checkpoint at {TRAIN_CKPT_EVERY}: parameters and optimizer state "
+          f"equal the uninterrupted run's, bit for bit; one step at "
+          f"accum_steps {TRAIN_ACCUM} (B {TRAIN_ACCUM * TRAIN_BATCH}) "
+          f"{acc_ms:.3f} ms, peak {acc_peak:.3f} GiB; {json.dumps(train)}")
+    csrc = "src/repro_torch/kernels/csrc"
+    replaces = "src/repro/kernels/flash_attention/flash_attention.py:95"
+    recs = []
+    for name, source, dtype, n_launch, path in (
+            ("flash_attention_prefill_stats", f"{csrc}/flash_prefill.cu",
+             "bf16", n_main["flash_attention_prefill_stats"],
+             "launch/train, gemma3-1b at full width"),
+            ("flash_attention_prefill_f32_stats",
+             f"{csrc}/flash_prefill_f32.cu", "f32",
+             n_grad["flash_attention_prefill_f32_stats"],
+             "the reduced f32 gradients (gemma3-1b, deepseek-v3)")):
+        top = next(s for s in shapes[dtype]
+                   if s["shape"].startswith("training global"))
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": n_launch,
+               "launches_note": f"the training path: {path}, counts zeroed "
+                                f"before and read after",
+               "max_abs_err": max(s["max_abs_err"] for s in shapes[dtype]),
+               "ms": top["ms"], "plain_ms": top["plain_ms"],
+               "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+               "library_ms": top["library_ms"], "shape": top["shape"],
+               "no_stats_ms": top["no_stats_ms"],
+               "shapes": shapes[dtype]}
+        if dtype == "bf16":
+            rec["training"] = train
+            rec["backward"] = bwd
+        print(f"kernel {name}: {json.dumps(rec)}")
+        recs.append(rec)
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1861,6 +2459,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- sharded path
     sharded = sharded_phase(uni, ev, gm, fused_times, dev)
+    sharded["rank_local"] = rank_phase(src)
 
     # --------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev)
@@ -2121,6 +2720,9 @@ def main() -> int:
     next(r for r in record if r["name"] == "flash_attention_prefill")[
         "shapes"].append(mla_prefill)
     record.append(mla_rec)
+
+    # -------------------------------------------------------------- training
+    record.extend(train_phase(dev))
 
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

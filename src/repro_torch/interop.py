@@ -97,10 +97,12 @@ def _leaf_tensor(a: np.ndarray) -> torch.Tensor:
     """A numpy leaf as a tensor of the same dtype.  A JAX bf16 array comes
     out of ``np.asarray`` as an ``ml_dtypes`` bfloat16 array, which
     ``torch.from_numpy`` refuses: it is carried by its bits."""
+    shape = np.shape(a)                 # ascontiguousarray makes 0-d 1-d
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).reshape(shape)
+    return torch.from_numpy(a.copy()).reshape(shape)
 
 
 def params_from_reference(tree: Mapping[str, Any], cfg, device="cuda"
@@ -136,3 +138,30 @@ def params_from_reference(tree: Mapping[str, Any], cfg, device="cuda"
         return out
 
     return carry(param_defs(cfg), tree, "")
+
+
+_OPT_STATE_KEYS = ({"step", "m", "v", "master"}, {"step", "stats"},
+                   {"step", "mom"})
+
+
+def opt_state_from_reference(tree: Mapping[str, Any], device="cuda"
+                             ) -> dict[str, Any]:
+    """The port's optimizer state from the JAX package's: the state tree of
+    ``repro.training.optim``'s ``adamw`` (``{"step", "m", "v", "master"}``),
+    ``adafactor`` (``{"step", "stats"}``, ``{"vr", "vc"}`` or ``{"v"}`` per
+    leaf) or ``sgd`` (``{"step", "mom"}``), each leaf converted by
+    ``np.asarray``.  The port's optimizers (:mod:`repro_torch.training.optim`)
+    keep the same keys, so the carry is leaf for leaf, dtypes kept (the
+    int32 ``step`` too).  The tensors land on the card unless
+    ``device="cpu"`` (the default raises without one)."""
+    device = resolve_device(device)
+    if set(tree) not in _OPT_STATE_KEYS:
+        raise ValueError(f"not an optimizer state of the reference: keys "
+                         f"{sorted(tree)}")
+
+    def carry(sub):
+        if isinstance(sub, Mapping):
+            return {key: carry(val) for key, val in sub.items()}
+        return _leaf_tensor(np.asarray(sub)).to(device)
+
+    return carry(tree)

@@ -59,6 +59,12 @@
 // * Heaviest tiles first.  Blocks go onto the grid with the last query tile
 //   first (blockIdx.y counts down), all (b, h) of a query tile together, so
 //   causal rows with the most keys start in the first wave.
+// * Row statistics for training.  ops.attention_stats passes two f32
+//   [B, Hq, Sq] pointers, and the epilogue writes each row's softmax max
+//   and denominator there (store_stats: the reference's m and l of
+//   _flash_fwd_impl, which its backward recomputes p from).  A branch on
+//   the pointer after the key loop: serving passes null, the loop is the
+//   same code, and out is the same bits either way.
 #include <cuda.h>             // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +98,8 @@ struct Params {
   int window;                   // 0: no window
   int q_offset;
   float scale_log2;             // scale · log2(e)
+  float* row_m;                 // null, or [B, Hq, Sq] f32 row statistics:
+  float* row_l;                 // max of s·scale, and the softmax denominator
 };
 
 // ------------------------------------------------------------- tile plan
@@ -435,6 +443,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[DV / 2],
   else wgmma_rs_n256(d, a, db);
 }
 
+// The row statistics of the training forward (ops.attention_stats), the
+// reference's m and l (_flash_fwd_impl): m is kept here in the log2 domain,
+// max of s·scale·log2(e), and l = Σ 2^(that - m) = Σ exp(s·scale - m·ln 2),
+// so the reference's pair is (m·ln 2, l).  A row with no visible key has
+// m = -inf here and the reference's -1e30 there, l = 0 in both.  Serving
+// passes null pointers and never reaches this store.
+__device__ __forceinline__ void store_stats(const Params& p, int b, int h,
+                                            int row, float m, float l) {
+  const long long at = ((long long)b * p.Hq + h) * p.Sq + row;
+  p.row_m[at] = m == -INFINITY ? -1e30f : m * 0.6931471805599453f;
+  p.row_l[at] = l;
+}
+
 // ---------------------------------------------------------------- kernel
 
 // Shared memory, from a 1024-byte-aligned base (the swizzle atom): Q as
@@ -671,6 +692,7 @@ attention_prefill_kernel(const __grid_constant__ CUtensorMap tq,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = row_a + 8 * i;
     if (row >= p.Sq) continue;
+    if (p.row_m != nullptr && tq4 == 0) store_stats(p, b, h, row, m[i], l[i]);
     const float den = fmaxf(l[i], 1e-30f);
     bf16* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss +
                  2 * tq4;
@@ -778,7 +800,8 @@ const char* cuda_error_string(int err) {
 // 8, every pointer 16-byte aligned; D a multiple of 16, Dv of 8), run by
 // the instantiation (Di, Dvi), one of (64, 64), (128, 128), (192, 128),
 // (192, 192), (256, 256) (ops.PREFILL_DIMS) with Di >= D and Dvi >= Dv.
-// window = 0 means no window.
+// window = 0 means no window.  row_m and row_l are null (serving), or both
+// f32 [B, Hq, Sq], contiguous, for the rows' statistics (store_stats).
 int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
                          long long q_sb, long long q_sh, long long q_ss,
                          long long k_sb, long long k_sh, long long k_ss,
@@ -786,7 +809,10 @@ int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
                          long long o_sb, long long o_sh, long long o_ss, int B,
                          int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
                          int Di, int Dvi, int causal, int window, int q_offset,
-                         float scale, void* stream) {
+                         float scale, float* row_m, float* row_l,
+                         void* stream) {
+  if ((row_m == nullptr) != (row_l == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (Hkv <= 0 || Hq % Hkv || (Sq + kBM - 1) / kBM > 65535 || D < 1 ||
       Dv < 1 || D > Di || Dv > Dvi || D % 16 || Dv % 8)
     return (int)cudaErrorInvalidValue;
@@ -798,7 +824,8 @@ int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const Params p{static_cast<bf16*>(o), o_sb, o_sh, o_ss, Hq, Hkv, Sq, Sk,
                  (D + kChunk - 1) / kChunk, (Dv + kChunk - 1) / kChunk, Dv,
-                 causal, window, q_offset, scale * 1.4426950408889634f};
+                 causal, window, q_offset, scale * 1.4426950408889634f,
+                 row_m, row_l};
   cudaStream_t st = (cudaStream_t)stream;
   if (Di == 64 && Dvi == 64) return (int)launch<64, 64>(tq, tk, tv, p, B, st);
   if (Di == 128 && Dvi == 128)

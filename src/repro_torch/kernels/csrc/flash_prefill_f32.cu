@@ -69,6 +69,9 @@
 //   only those that straddle the diagonal, the window's edge or Sk
 //   (ops.prefill_tile_plan with block_m = 16, block_n = 32 mirrors it); the
 //   last query tile goes onto the grid first.
+// * Row statistics for training, as in flash_prefill.cu: with non-null
+//   row_m / row_l the epilogue writes each row's softmax max and
+//   denominator (store_stats); serving passes null and out is unchanged.
 #include <cuda.h>             // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,6 +103,8 @@ struct Params {
   int window;                   // 0: no window
   int q_offset;
   float scale_log2;             // scale · log2(e)
+  float* row_m;                 // null, or [B, Hq, Sq] f32 row statistics:
+  float* row_l;                 // max of s·scale, and the softmax denominator
 };
 
 // ------------------------------------------------------------- tile plan
@@ -219,6 +224,17 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The row statistics of the training forward (ops.attention_stats), the
+// reference's m and l (_flash_fwd_impl), as in flash_prefill.cu: m is kept
+// in the log2 domain here, so the reference's pair is (m·ln 2, l); a row
+// with no visible key stores -1e30 and l = 0.  Serving passes null.
+__device__ __forceinline__ void store_stats(const Params& p, int b, int h,
+                                            int row, float m, float l) {
+  const long long at = ((long long)b * p.Hq + h) * p.Sq + row;
+  p.row_m[at] = m == -INFINITY ? -1e30f : m * 0.6931471805599453f;
+  p.row_l[at] = l;
 }
 
 // ---------------------------------------------------------------- kernel
@@ -465,6 +481,7 @@ attention_prefill_f32_kernel(const __grid_constant__ CUtensorMap tq,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = row_a + 8 * i;
     if (row >= p.Sq) continue;
+    if (p.row_m != nullptr && t4 == 0) store_stats(p, b, h, row, m[i], l[i]);
     const float den = fmaxf(l[i], 1e-30f);
     float* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss +
                   2 * t4;
@@ -568,7 +585,8 @@ const char* cuda_error_string(int err) {
 // 4, every pointer 16-byte aligned; D and Dv multiples of 4), run by the
 // instantiation (Di, Dvi), one of (64, 64), (128, 128), (256, 256)
 // (ops.PREFILL_F32_DIMS) with Di >= D and Dvi >= Dv.  window = 0 means no
-// window.
+// window.  row_m and row_l are null (serving), or both f32 [B, Hq, Sq],
+// contiguous, for the rows' statistics (store_stats).
 int flash_prefill_f32_launch(const void* q, const void* k, const void* v,
                              void* o, long long q_sb, long long q_sh,
                              long long q_ss, long long k_sb, long long k_sh,
@@ -577,7 +595,10 @@ int flash_prefill_f32_launch(const void* q, const void* k, const void* v,
                              long long o_ss, int B, int Hq, int Hkv, int Sq,
                              int Sk, int D, int Dv, int Di, int Dvi,
                              int causal, int window, int q_offset,
-                             float scale, void* stream) {
+                             float scale, float* row_m, float* row_l,
+                             void* stream) {
+  if ((row_m == nullptr) != (row_l == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (Hkv <= 0 || Hq % Hkv || (Sq + kBM - 1) / kBM > 65535 || D < 1 ||
       Dv < 1 || D > Di || Dv > Dvi || D % 4 || Dv % 4)
     return (int)cudaErrorInvalidValue;
@@ -589,7 +610,7 @@ int flash_prefill_f32_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Params p{static_cast<float*>(o), o_sb, o_sh, o_ss, Hq, Hkv, Sq, Sk,
                  D, Dv, causal, window, q_offset,
-                 scale * 1.4426950408889634f};
+                 scale * 1.4426950408889634f, row_m, row_l};
   cudaStream_t st = (cudaStream_t)stream;
   if (Di == 64 && Dvi == 64) return (int)launch<64, 64>(tq, tk, tv, p, B, st);
   if (Di == 128 && Dvi == 128)

@@ -1,2 +1,3 @@
-from .ops import MAX_HEAD_DIM, attention, launches  # noqa: F401
-from .ref import attention_ref  # noqa: F401
+from .ops import (MAX_HEAD_DIM, FlashAttention, attention,  # noqa: F401
+                  attention_bwd, attention_stats, launches)
+from .ref import attention_ref, attention_ref_stats  # noqa: F401

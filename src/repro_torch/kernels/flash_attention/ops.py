@@ -24,7 +24,16 @@ nothing is padded on the host.  ``csrc/flash_attention.cu`` and
 ``flash_attention`` every kernel call of :func:`attention`,
 ``flash_attention_prefill``, ``flash_attention_prefill_f32``,
 ``flash_attention_decode`` and ``flash_attention_mla`` those that took
-each kernel.
+each kernel, and ``flash_attention_prefill_stats`` /
+``flash_attention_prefill_f32_stats`` those of the prefill kernels that
+also wrote the rows' statistics.
+
+Training: when autograd records, :func:`attention` goes through
+:class:`FlashAttention`, the port of the reference's ``custom_vjp``: its
+forward :func:`attention_stats` (a prefill launch with the statistics
+output on CUDA tensors), its backward :func:`attention_bwd` (the
+reference's chunked recompute, torch ops on either device; the reference
+has no backward kernel).
 
 GQA is not broadcast here: the kernel reads KV head ``h // (Hq / Hkv)``
 itself.  Inputs may be strided views (a transposed projection, a slice of
@@ -40,11 +49,16 @@ import torch.nn.functional as F
 
 from .. import _build
 from ..policy import use_kernel
-from .ref import attention_ref
+from .ref import attention_ref, attention_ref_stats
 
 launches = {"flash_attention": 0, "flash_attention_prefill": 0,
             "flash_attention_prefill_f32": 0, "flash_attention_decode": 0,
-            "flash_attention_mla": 0}
+            "flash_attention_mla": 0, "flash_attention_prefill_stats": 0,
+            "flash_attention_prefill_f32_stats": 0}
+
+# The backward's key chunk: the reference's ``block_k``
+# (``repro/kernels/flash_attention/ops.py::_chunked_gqa_attention``).
+BWD_BLOCK_K = 512
 
 MAX_HEAD_DIM = 256          # the kernel keeps a row's Dv outputs in registers
 # The MLA kernels, bf16 only, blocks of 64 query rows (heads x Sq) of one KV
@@ -97,7 +111,7 @@ _PREFILL = {torch.bfloat16: ("flash_prefill", "flash_attention_prefill",
                              PREFILL_DIMS),
             torch.float32: ("flash_prefill_f32", "flash_attention_prefill_f32",
                             PREFILL_F32_DIMS)}
-_PREFILL_ARGS = [_P, _P, _P, _P, *[_L] * 12, *[_I] * 12, _F, _P]
+_PREFILL_ARGS = [_P, _P, _P, _P, *[_L] * 12, *[_I] * 12, _F, _P, _P, _P]
 _DECODE_SIGNATURES = {"flash_decode_launch": [*[_P] * 6, *[_L] * 12,
                                               *[_I] * 10, _F, *[_I] * 5, _P]}
 _MLA_SIGNATURES = {"flash_mla_launch": [*[_P] * 6, *[_L] * 12, *[_I] * 10,
@@ -362,7 +376,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     == 0) -> [B, Hq, Sq, Dv] in ``q.dtype``.  ``q_offset`` is the absolute
     position of ``q[:, :, 0]`` (decode: the cache length); ``window``
     masks keys with ``qpos - kpos >= window``; ``scale`` defaults to
-    ``D ** -0.5``."""
+    ``D ** -0.5``.
+
+    When autograd records (grad enabled and q, k or v requiring grad) the
+    call goes through :class:`FlashAttention`: the forward with the rows'
+    statistics (:func:`attention_stats`), the backward
+    :func:`attention_bwd`.  Otherwise the routes below, unchanged."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset, scale)
     if not use_kernel(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)
@@ -429,24 +451,36 @@ def _mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
 
 
 def _prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
-             flags: tuple) -> torch.Tensor:
+             flags: tuple, stats: bool = False):
     """Launch the prefill kernel of ``q``'s dtype (``csrc/flash_prefill.cu``
     in bf16, ``csrc/flash_prefill_f32.cu`` in f32) on :func:`kernel_args`'
     output, at the instantiation :func:`prefill_dims` picks; the kernel
-    reads the real head dims and writes a ``[B, Hq, Sq, Dv]`` output."""
+    reads the real head dims and writes a ``[B, Hq, Sq, Dv]`` output.
+    With ``stats`` it also writes the rows' ``m`` and ``l`` (f32 ``[B, Hq,
+    Sq]``) and returns ``(out, m, l)``; such a launch counts under the
+    kernel's counter and its ``_stats`` counter."""
     source, counter, dims = _PREFILL[q.dtype]
     fn = f"{source}_launch"
     lib = _build.load(source, {fn: _PREFILL_ARGS})
     B, Hq, Hkv, Sq, Sk, D, Dv = sizes
     out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
+    m = l = None
+    if stats:
+        m = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *_strides(q, k, v, out), *sizes, *prefill_dims(D, Dv, dims),
-            *flags, torch.cuda.current_stream(q.device).cuda_stream)
+            *flags, m.data_ptr() if stats else None,
+            l.data_ptr() if stats else None,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, fn, err)
     launches[counter] += 1
-    return out
+    if not stats:
+        return out
+    launches[f"{counter}_stats"] += 1
+    return out, m, l
 
 
 def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
@@ -567,3 +601,118 @@ def _mla_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "flash_mla", err)
     return out if out.shape[-1] == dv else out[..., :dv]
+
+
+# ---------------------------------------------------------------------------
+# training: the forward with row statistics, the chunked backward
+# ---------------------------------------------------------------------------
+
+def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0, scale: float | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attention` and its rows' statistics ``(out, m, l)``, the
+    reference's ``_flash_fwd_impl``: ``m`` the max of the visible scores
+    ``s·scale`` (``-1e30`` for a row that sees no key), ``l`` the softmax
+    denominator over the visible keys (0 there), both f32 ``[B, Hq, Sq]``.
+
+    CPU tensors run :func:`~.ref.attention_ref_stats`.  CUDA tensors run
+    the prefill kernel of their dtype at any Sq (decode-shaped calls
+    included: ``flash_decode.cu`` writes no statistics) with its
+    statistics output: ``out`` is what the same launch without it gives,
+    bit for bit.  bf16 past a head dim of 256 (MLA's absorbed decode,
+    which training does not run) raises ``ValueError``."""
+    if not use_kernel(q, k, v):
+        return attention_ref_stats(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+    dv = v.shape[-1]
+    q, k, v, sizes, flags = kernel_args(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        scale=scale)
+    B, Hq, Hkv, Sq, Sk, D, Dv = sizes
+    if max(D, Dv) > MAX_HEAD_DIM:
+        raise ValueError(f"no prefill kernel with statistics past a head "
+                         f"dim of {MAX_HEAD_DIM}: got D={D}, Dv={Dv}")
+    out, m, l = _prefill(q, k, v, sizes, flags, stats=True)
+    launches["flash_attention"] += 1
+    return (out if out.shape[-1] == dv else out[..., :dv]), m, l
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                  dout: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None, q_offset: int = 0,
+                  scale: float | None = None, block_k: int = BWD_BLOCK_K
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`attention` from its saved ``(q, k, v,
+    out, m, l)``: the reference's chunked recompute ``_flash_bwd``
+    (``repro/kernels/flash_attention/ops.py:98-135``), in torch ops on
+    either device.  Keys are padded to whole ``block_k`` chunks; for each
+    chunk the scores are recomputed in f32, ``p = exp(s - m) / max(l,
+    1e-30)`` masked to the visible keys, and ``dv += pᵀ·dout``, ``ds = p ·
+    (dout·vᵀ - Δ) · scale`` with ``Δ = Σ dout·out``, ``dq += ds·k``, ``dk
+    += dsᵀ·q``, every product in f32; GQA groups sum into their KV head.
+    ``dk`` and ``dv`` are cast to k's and v's dtype chunk by chunk and
+    ``dq`` once, as the reference does.  The reference has no backward
+    Pallas kernel, so there is no hand-written kernel here either."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    scale = float(scale if scale is not None else D ** -0.5)
+    bk = min(block_k, Sk)
+    nk = -(-Sk // bk)
+    if nk * bk != Sk:
+        k = F.pad(k, (0, 0, 0, nk * bk - Sk))
+        v = F.pad(v, (0, 0, 0, nk * bk - Sk))
+    qf = q.float().reshape(B, Hkv, G, Sq, D)
+    dof = dout.float().reshape(B, Hkv, G, Sq, Dv)
+    delta = (dof * out.float().reshape(B, Hkv, G, Sq, Dv)).sum(-1)
+    m = m.reshape(B, Hkv, G, Sq, 1)
+    linv = 1.0 / torch.clamp(l.reshape(B, Hkv, G, Sq, 1), min=1e-30)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    dq = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for j in range(nk):
+        kb = k[:, :, j * bk:(j + 1) * bk].float()
+        vb = v[:, :, j * bk:(j + 1) * bk].float()
+        kpos = torch.arange(j * bk, (j + 1) * bk, device=q.device)[None, :]
+        msk = kpos < Sk
+        if causal:
+            msk = msk & (qpos >= kpos)
+        if window is not None:
+            msk = msk & ((qpos - kpos) < window)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * scale
+        p = torch.where(msk, torch.exp(s - m) * linv, 0.0)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, dof).to(v.dtype))
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qf).to(k.dtype))
+    dk = torch.cat(dks, dim=2)[:, :, :Sk]
+    dv = torch.cat(dvs, dim=2)[:, :, :Sk]
+    return dq.reshape(B, Hq, Sq, D).to(q.dtype), dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`attention` with a gradient, the port of the reference's
+    ``_flash`` ``custom_vjp``: the forward is :func:`attention_stats` (on
+    CUDA tensors one prefill launch with the statistics output) and saves
+    ``(q, k, v, out, m, l)``; the backward is :func:`attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        out, m, l = attention_stats(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, scale=scale)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.mask = (causal, window, q_offset, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        causal, window, q_offset, scale = ctx.mask
+        dq, dk, dv = attention_bwd(q, k, v, out, m, l, dout, causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   scale=scale)
+        return dq, dk, dv, None, None, None, None

@@ -10,7 +10,8 @@ key therefore comes out exactly 0 (the JAX ``attention_ref`` gives NaN
 there).  GQA goes by head index: query head ``h`` reads KV head
 ``h // (Hq / Hkv)``.  It materialises the full score matrix, in one pass
 rather than online; the CPU path and the tests use it, and nothing on the
-card's main path does.
+card's main path does.  :func:`attention_ref_stats` adds the rows'
+statistics ``(m, l)`` that the training forward saves for the backward.
 
 :func:`split_bf16` and :func:`split_tf32` emulate how the prefill kernels
 carry f32 values into the tensor cores (``attention_ref``'s ``p_terms``
@@ -54,6 +55,26 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     only) takes both products as ``flash_prefill_f32.cu`` does, each a sum
     of TF32 products (:func:`tf32_product`): 3 for the kernel's
     ``A_hi·B_hi + A_hi·B_lo + A_lo·B_hi``, 1 for one TF32 product."""
+    return _attention_ref(q, k, v, causal, window, q_offset, scale, p_terms,
+                          tf32_terms)[0]
+
+
+def attention_ref_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        q_offset: int = 0, scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attention_ref` and its rows' statistics, as the reference's
+    ``_flash_fwd_impl`` returns them for the backward: ``(out, m, l)``,
+    ``m`` the max of the visible scores ``s·scale`` (``-1e30`` for a row
+    that sees no key) and ``l = Σ exp(s·scale - m)`` over the visible keys
+    (0 for such a row), both f32 ``[B, Hq, Sq]``.  What the prefill
+    kernels write with their statistics output, on the CPU."""
+    return _attention_ref(q, k, v, causal, window, q_offset, scale, None,
+                          None)
+
+
+def _attention_ref(q, k, v, causal, window, q_offset, scale, p_terms,
+                   tf32_terms):
     B, Hq, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
@@ -63,14 +84,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = visible(Sq, Sk, causal=causal, window=window, q_offset=q_offset,
                    device=q.device)
     s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
+    m = (s.amax(dim=-1, keepdim=True) if Sk else
+         torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device))
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     if p_terms is not None:
         p = split_bf16(p, p_terms)
     out = tf32_product("bhgqk,bhkd->bhgqd", p, v.float(), tf32_terms)
     out = out / torch.clamp(l, min=1e-30)
-    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)
+    return (out.reshape(B, Hq, Sq, Dv).to(q.dtype), m.reshape(B, Hq, Sq),
+            l.reshape(B, Hq, Sq))
 
 
 def split_bf16(p: torch.Tensor, terms: int) -> torch.Tensor:

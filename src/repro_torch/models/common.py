@@ -5,7 +5,7 @@ Parameters are declared once as :class:`ParamDef` trees (nested dicts) with
 the JAX package's logical axis names kept beside each shape, so a tree here
 has exactly the keys, shapes and dtypes of the reference's.  The sharding
 helpers of the reference (``logical_to_spec``, ``param_shardings``,
-``param_pspecs``) and ``cross_entropy`` (training) are not ported.
+``param_pspecs``) are not ported: one card has no mesh.
 """
 from __future__ import annotations
 
@@ -140,3 +140,22 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``targets`` under ``logits [..., V]``
+    (``mask``: the mean over its nonzero positions), in f32, as the
+    reference computes it (``repro/models/common.py::cross_entropy``): the
+    gold logit as a one-hot mask-sum, ``where(iota == target, logits,
+    0).sum(-1)``, which adds exact zeros to the one gold term and so equals
+    a gather bit for bit."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(vocab == targets[..., None], logits, 0.0).sum(-1)
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

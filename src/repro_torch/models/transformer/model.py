@@ -5,10 +5,10 @@ RMSNorm + SwiGLU (yi-34b, stablelm-12b); gemma3-1b's 5:1 local:global
 sliding window with two RoPE bases, tied 262k vocabulary, ``sqrt(d)``
 embedding scale and logit softcap; deepseek-v3's MLA (latent-compressed
 KV, absorbed decode) with shared + routed fine-grained MoE and the
-sigmoid aux-free router; arctic's dense FFN ∥ 128-expert top-2 MoE.  The
-``mtp`` parameter group is declared (the reference's trees carry over)
-but, as in the reference's serving path, never run: only the training
-loss uses it, and training is not ported yet.
+sigmoid aux-free router; arctic's dense FFN ∥ 128-expert top-2 MoE; and
+the training loss :func:`loss_fn`, with deepseek-v3's multi-token
+prediction (``mtp``: one extra block predicting token t+2), which only the
+loss runs, as in the reference.
 
 Parameters are a plain nested dict of tensors in the reference's stacked
 layout (``group{gi}/<name>`` of shape ``[L, ...]``), so the JAX package's
@@ -23,7 +23,12 @@ leaves them to XLA.
 Unlike the functional JAX version, caches are updated in place: decode
 writes the new keys and values (MLA: latents) into the ``max_len`` cache
 it is given, and :func:`prefill_step` with ``max_len`` fills a fresh
-``max_len`` cache with the prompt's.
+``max_len`` cache with the prompt's.  The serving steps run under
+``torch.no_grad``; :func:`forward` records autograd when its parameters
+require grad, and then, with ``cfg.remat``, recomputes each layer in the
+backward (``torch.utils.checkpoint``), as the reference's ``scan`` body
+is ``jax.checkpoint``-ed.  Training never writes a cache, and the MoE
+dispatch's one in-place write fills a fresh buffer that autograd tracks.
 """
 from __future__ import annotations
 
@@ -32,10 +37,12 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ...kernels.flash_attention import attention
 from ...kernels.policy import resolve_device
-from ..common import ParamDef, apply_rope, rmsnorm, silu, softcap, swiglu
+from ..common import (ParamDef, apply_rope, cross_entropy, rmsnorm, silu,
+                      softcap, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +90,7 @@ class TransformerConfig:
     mla: MLAConfig | None = None
     mtp: bool = False                        # deepseek multi-token prediction
     dtype: Any = torch.bfloat16
+    remat: bool = True                       # recompute layers in training
 
     @property
     def q_dim(self) -> int:
@@ -426,11 +434,19 @@ def _layer(kind: str, p: dict, i: int, x: torch.Tensor,
     return x + f, aux, new_kv
 
 
+def _remat_body(kind: str, p: dict, i: int, x: torch.Tensor,
+                cfg: TransformerConfig, positions: torch.Tensor,
+                window: int | None, theta: float):
+    """:func:`_layer` without a cache, as ``(x, aux)``: what a
+    ``checkpoint``-ed training layer keeps."""
+    x, aux, _ = _layer(kind, p, i, x, cfg, positions, window, theta)
+    return x, aux
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
             return_cache: bool = False, cache=None, cache_len: int | None = None,
             positions: torch.Tensor | None = None, last_only: bool = False):
@@ -444,7 +460,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     prompt: ``(k, v)`` ``[L, B, Hkv, S, Dh]``, or for MLA ``(c_kv
     [L, B, S, kv_lora], k_pe [L, B, S, qk_rope])`` with ``k_pe`` un-roped.
     ``last_only`` applies the head to the last position alone (logits
-    ``[B, 1, V]``)."""
+    ``[B, 1, V]``).  With autograd recording and ``cfg.remat`` (training:
+    no cache in or out) each layer is a ``torch.utils.checkpoint``."""
     B, S = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.embed_scale:
@@ -454,6 +471,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
     windows, thetas = cfg.layer_meta()
+    remat = (cfg.remat and torch.is_grad_enabled() and cache is None and
+             not return_cache)
     aux_total = 0.0
     caches_out = []
     off = 0
@@ -462,11 +481,17 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
         ks, vs = [], []
         for i in range(L):
             w = windows[off + i]
+            w = None if w >= 1 << 30 else w
+            if remat:
+                x, aux = checkpoint(_remat_body, kind, g, i, x, cfg,
+                                    positions, w, thetas[off + i],
+                                    use_reentrant=False)
+                aux_total = aux_total + aux
+                continue
             cache_kv = None
             if cache is not None:
                 cache_kv = (cache[gi][0][i], cache[gi][1][i], cache_len)
-            x, aux, (k, v) = _layer(kind, g, i, x, cfg, positions,
-                                    None if w >= 1 << 30 else w,
+            x, aux, (k, v) = _layer(kind, g, i, x, cfg, positions, w,
                                     thetas[off + i], cache_kv)
             aux_total = aux_total + aux
             if return_cache and cache is None:
@@ -483,6 +508,40 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
                                   w.to(cfg.dtype)), cfg.logit_softcap)
     caches = caches_out if (return_cache or cache is not None) else None
     return logits, aux_total, caches, x
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig):
+    """The reference's training loss (``repro/models/transformer/model.py::
+    loss_fn``): next-token cross entropy of ``batch["tokens"] [B, S]``,
+    plus 0.01 × the MoE load-balance term, plus, with ``cfg.mtp``
+    (deepseek-v3's multi-token prediction, depth 1), 0.3 × the cross
+    entropy of token t+2 predicted by one extra block (the ``mtp`` group)
+    from the final hidden state at t joined with the embedding of token
+    t+1, through the shared head; that block runs at the last layer's
+    window and RoPE base and its aux term joins the total.  Returns
+    ``(total, {"loss", "aux", "mtp"})``."""
+    tokens = batch["tokens"]
+    logits, aux, _, hidden = forward(params, tokens, cfg)
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    mtp_loss = 0.0
+    if cfg.mtp:
+        g = params["mtp"]
+        emb_next = params["embed"][tokens[:, 1:]].to(cfg.dtype)
+        h = torch.cat([hidden[:, :-1], emb_next], dim=-1)
+        h = torch.matmul(h, g["mtp_proj"][0])
+        kind = "dense" if cfg.moe is None else "moe"
+        windows, thetas = cfg.layer_meta()
+        w = None if windows[-1] >= 1 << 30 else windows[-1]
+        positions = torch.arange(h.shape[1], device=tokens.device)
+        h, mtp_aux, _ = _layer(kind, g, 0, h, cfg, positions, w, thetas[-1])
+        head = params["embed"].t() if cfg.tied_embeddings else \
+            params["lm_head"]
+        mtp_logits = softcap(torch.matmul(h, head.to(cfg.dtype)),
+                             cfg.logit_softcap)
+        mtp_loss = cross_entropy(mtp_logits[:, :-1], tokens[:, 2:])
+        aux = aux + mtp_aux
+    total = loss + 0.01 * aux + 0.3 * mtp_loss
+    return total, {"loss": loss, "aux": aux, "mtp": mtp_loss}
 
 
 # ---------------------------------------------------------------------------
@@ -508,6 +567,7 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     return caches
 
 
+@torch.no_grad()
 def prefill_step(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                  max_len: int | None = None):
     """Prefill: the last position's logits ``[B, V]`` and the caches.
@@ -537,6 +597,7 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     return logits[:, -1], caches
 
 
+@torch.no_grad()
 def decode_step(params: dict, cache, tokens: torch.Tensor, cache_len: int,
                 cfg: TransformerConfig):
     """One decode step: tokens [B, 1] against caches filled to

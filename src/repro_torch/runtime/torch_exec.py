@@ -15,7 +15,8 @@ module replaces the *apply* phase with device work:
    (word ``w`` at row ``w % P``, column ``w // P``) and lands all P rows
    as the batch of one chain launch per plane: the rows never exchange a
    word, as the reference's ``shard_map`` over P devices never issues a
-   collective.
+   collective; under ``torch.distributed`` each rank lowers and lands only
+   its own rows (:func:`execute_singlepoint_sharded_rank`).
 
 Every entry point takes ``device=`` (default ``"cuda"``): CUDA tensors go
 through the hand-written kernels, ``device="cpu"`` through their plain
@@ -636,24 +637,33 @@ def _to_sharded_layout(idx: np.ndarray, Pn: int
     return (w % Pn).astype(np.int64), ((w // Pn) * 32 + (idx & 31)).astype(np.int64)
 
 
-def _scatter_rows(out_pw: np.ndarray, ix, Pn: int) -> None:
-    """OR slot indices spanning every partition into a ``[P, Wp]`` plane."""
+def _scatter_rows(out_pw: np.ndarray, ix, Pn: int, rows: range | None = None
+                  ) -> None:
+    """OR slot indices spanning every partition into a ``[P, Wp]`` plane;
+    with ``rows``, into the plane of those rows alone (``[len(rows), Wp]``),
+    dropping the slots of every other row."""
     ix = np.asarray(ix, np.int64)
     if ix.size == 0:
         return
     row, lbit = _to_sharded_layout(ix, Pn)
+    if rows is not None:
+        keep = (row >= rows.start) & (row < rows.stop)
+        row, lbit = row[keep] - rows.start, lbit[keep]
     np.bitwise_or.at(out_pw, (row, lbit >> 5),
                      np.uint32(1) << (lbit & 31).astype(np.uint32))
 
 
-def _stack_sharded(chain_idx: list[np.ndarray], U: int, Pn: int) -> np.ndarray:
+def _stack_sharded(chain_idx: list[np.ndarray], U: int, Pn: int,
+                   rows: range | None = None) -> np.ndarray:
     """K slot-index sets → ``[P, K, Wp]`` packed words: the reference's
     ``[K, P, Wp]`` stack with the partition axis first, so that the P rows
-    are the chain kernel's contiguous batch."""
+    are the chain kernel's contiguous batch (with ``rows``, those rows
+    alone)."""
     Wp = -(-bmod.num_words(U) // Pn)
-    out = np.zeros((Pn, len(chain_idx), Wp), np.uint32)
+    n = Pn if rows is None else len(rows)
+    out = np.zeros((n, len(chain_idx), Wp), np.uint32)
     for k, ix in enumerate(chain_idx):
-        _scatter_rows(out[:, k], ix, Pn)
+        _scatter_rows(out[:, k], ix, Pn, rows)
     return out
 
 
@@ -684,7 +694,8 @@ def _scatter_row(out_kp: np.ndarray, ix: np.ndarray, Pn: int) -> None:
                      np.uint32(1) << (lbit & 31).astype(np.uint32))
 
 
-def plan_to_chain_sharded(dg: DeltaGraph, plan: Plan, Pn: int, pool=None
+def plan_to_chain_sharded(dg: DeltaGraph, plan: Plan, Pn: int, pool=None,
+                          rows: range | None = None
                           ) -> tuple[tuple[np.ndarray, np.ndarray],
                                      tuple[np.ndarray, ...]]:
     """Lower a *singlepoint* plan into base bitmaps plus per-partition
@@ -698,19 +709,24 @@ def plan_to_chain_sharded(dg: DeltaGraph, plan: Plan, Pn: int, pool=None
     delta/eventlist sub-payload's slots land entirely in row ``p``.
     In-memory steps (recent events, which are not yet partitioned into
     storage) carry slots from every partition and are scattered across
-    rows like the dense path does."""
+    rows like the dense path does.
+
+    With ``rows`` (a rank's contiguous share of the P rows) only those
+    partitions' sub-payloads are fetched and the stacks are ``[len(rows),
+    K, Wp]``, equal to those rows of the whole stacks."""
     if dg.P != Pn or dg.partition_fn_name != "word_cyclic":
         raise ValueError(
             f"aligned sharded lowering needs dg.P == {Pn} storage "
             f"partitions under word_cyclic; have P={dg.P} "
             f"fn={dg.partition_fn_name}")
+    rows = range(Pn) if rows is None else rows
     (base_n, base_e), full = _plan_base(dg, plan, pool)
     entries: list[tuple[str, Any]] = [("full", pair) for pair in full]
     for st in plan.steps[1:]:
         kind = st.action[0]
         if kind == "delta":
             per = []
-            for p in range(Pn):
+            for p in rows:
                 d = dg._fetch_delta(st.action[1], NO_ATTRS, parts=(p,))
                 if st.action[2]:
                     per.append((d.node_add, d.node_del,
@@ -721,7 +737,7 @@ def plan_to_chain_sharded(dg: DeltaGraph, plan: Plan, Pn: int, pool=None
             entries.append(("parts", per))
         elif kind == "elist":
             per = []
-            for p in range(Pn):
+            for p in rows:
                 comps = dg._fetch_elist(st.action[1], NO_ATTRS,
                                         parts=(p,))
                 per.append(_elist_pair(comps, st.action[2], st.action[3])
@@ -736,30 +752,33 @@ def plan_to_chain_sharded(dg: DeltaGraph, plan: Plan, Pn: int, pool=None
             raise ValueError(st.action)
     K = len(entries)
     U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
-    stacks = tuple(np.zeros((Pn, K, -(-bmod.num_words(U) // Pn)), np.uint32)
-                   for U in (U_n, U_n, U_e, U_e))
+    stacks = tuple(np.zeros((len(rows), K, -(-bmod.num_words(U) // Pn)),
+                            np.uint32) for U in (U_n, U_n, U_e, U_e))
     for k, (tag, data) in enumerate(entries):
         if tag == "parts":
-            for p, pair in enumerate(data):
+            for r, pair in enumerate(data):
                 for st_arr, ix in zip(stacks, pair):
-                    _scatter_row(st_arr[p, k], ix, Pn)
+                    _scatter_row(st_arr[r, k], ix, Pn)
         else:  # full-state step: slots span partitions
             for st_arr, ix in zip(stacks, data):
-                _scatter_rows(st_arr[:, k], ix, Pn)
+                _scatter_rows(st_arr[:, k], ix, Pn, rows)
     return (base_n, base_e), stacks
 
 
 def lower_singlepoint_sharded(dg: DeltaGraph, t: int, *, partitions: int,
                               device="cuda", pool=None,
-                              use_current: bool = True) -> list[tuple]:
+                              use_current: bool = True,
+                              rows: range | None = None) -> list[tuple]:
     """The host half of sharded retrieval: plan, lower and stage.  Returns
     one ``(base [P, Wp], adds [P, K, Wp], dels [P, K, Wp], U)`` per plane
-    (nodes, edges), the words on ``device``.
+    (nodes, edges), the words on ``device``; with ``rows`` (a contiguous
+    range of the P rows) those rows alone, ``[len(rows), ...]``.
 
     With ``dg.P == partitions`` under ``word_cyclic`` (the aligned
     deployment) every partition's sub-payloads are fetched separately and
-    fill exactly their own row; otherwise the dense chain is re-laid into
-    the sharded layout."""
+    fill exactly their own row (with ``rows``, only those partitions' are
+    fetched); otherwise the dense chain is re-laid into the sharded
+    layout."""
     dev = resolve_device(device)
     Pn = int(partitions)
     if Pn < 1:
@@ -767,13 +786,16 @@ def lower_singlepoint_sharded(dg: DeltaGraph, t: int, *, partitions: int,
     plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
     U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
     if dg.P == Pn and dg.partition_fn_name == "word_cyclic":
-        (base_n, base_e), stacks = plan_to_chain_sharded(dg, plan, Pn, pool)
+        (base_n, base_e), stacks = plan_to_chain_sharded(dg, plan, Pn, pool,
+                                                         rows)
     else:
         (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
-        stacks = tuple(_stack_sharded([c[i] for c in chain], U, Pn)
+        stacks = tuple(_stack_sharded([c[i] for c in chain], U, Pn, rows)
                        for i, U in enumerate((U_n, U_n, U_e, U_e)))
     an, dn, ae, de = (_to_device(a, dev) for a in stacks)
-    return [(sharded_base(_to_device(base, dev), Pn).contiguous(), a, d, U)
+    sel = slice(None) if rows is None else slice(rows.start, rows.stop)
+    return [(sharded_base(_to_device(base, dev), Pn)[sel].contiguous(), a, d,
+             U)
             for base, a, d, U in ((base_n, an, dn, U_n),
                                   (base_e, ae, de, U_e))]
 
@@ -793,6 +815,62 @@ def execute_singlepoint_sharded_torch(dg: DeltaGraph, t: int, *,
             use_current=use_current):
         out = delta_apply_chain_batched(base, adds, dels)
         words = bmod.to_numpy_words(unshard(out, bmod.num_words(U)))
+        outs.append(bmod.np_unpack(words, U))
+    nm, em = outs
+    em &= ~dg.universe.edge_transient[:em.size]
+    nm &= ~dg.universe.node_transient[:nm.size]
+    return nm, em
+
+
+def rank_rows(partitions: int, rank: int, world: int) -> range:
+    """The contiguous rows of the ``[P, Wp]`` layout that ``rank`` of
+    ``world`` owns: ``P / world`` of them (``world`` must divide P)."""
+    if world < 1 or partitions % world:
+        raise ValueError(f"the world size ({world}) must divide the "
+                         f"partitions ({partitions})")
+    n = partitions // world
+    return range(rank * n, (rank + 1) * n)
+
+
+def execute_singlepoint_sharded_rank(dg: DeltaGraph, t: int, *,
+                                     partitions: int, device="cuda",
+                                     pool=None, use_current: bool = True,
+                                     group=None
+                                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Sharded retrieval under ``torch.distributed``, one rank's share on
+    its own ``device``: the rank-local form of the reference's
+    ``execute_singlepoint_sharded``, whose ``shard_map`` gives each device
+    of a ``retrieval_mesh`` one row of the ``[P, Wp]`` word-cyclic layout.
+
+    Each of the ``world`` ranks of ``group`` (the default group if None;
+    ``world`` must divide ``partitions``) plans the timepoint, lowers only
+    its own rows (:func:`rank_rows`; in the aligned deployment it fetches
+    only its own partitions' sub-payloads), and lands them as the batch of
+    one ``delta_apply_chain_batched`` launch per plane.  No collective runs
+    between lowering and the kernel.  The rows then reach every rank
+    through one host gather (``all_gather_object`` of the numpy words), as
+    the reference's caller reads ``shard_map``'s output back to the host;
+    the group's backend carries host objects (``gloo``).  Returns (node_mask,
+    edge_mask) bool arrays on every rank, bit-identical to
+    :func:`execute_singlepoint_sharded_torch`."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    rows = rank_rows(int(partitions), rank, world)
+    mine = []
+    for base, adds, dels, U in lower_singlepoint_sharded(
+            dg, t, partitions=partitions, device=device, pool=pool,
+            use_current=use_current, rows=rows):
+        mine.append(delta_apply_chain_batched(base, adds, dels).cpu()
+                    .numpy())
+    gathered: list = [None] * world
+    dist.all_gather_object(gathered, mine, group=group)
+    outs = []
+    for plane, U in enumerate((dg.universe.num_nodes,
+                               dg.universe.num_edges)):
+        words_pw = torch.from_numpy(np.concatenate(
+            [g[plane] for g in gathered]))
+        words = bmod.to_numpy_words(unshard(words_pw, bmod.num_words(U)))
         outs.append(bmod.np_unpack(words, U))
     nm, em = outs
     em &= ~dg.universe.edge_transient[:em.size]

@@ -217,11 +217,29 @@ def bitunpack(data: bytes, n: int, width: int) -> np.ndarray:
 # per-array encode/decode
 # ---------------------------------------------------------------------------
 
-def _dtype_token(a: np.ndarray) -> bytes:
+BF16 = "bfloat16"
+
+
+def _dtype_token(a: np.ndarray, bf16: bool = False) -> bytes:
     # dtype.str is '<V2' for ml_dtypes types (bfloat16 &c.) — the *name*
-    # round-trips through np.dtype() once ml_dtypes is imported
+    # round-trips through np.dtype() once ml_dtypes is imported.  ``bf16``:
+    # a uint16 array holding bfloat16 bits (torch's bf16, with no numpy
+    # dtype of its own) is written under that same name.
+    if bf16:
+        return BF16.encode()
     ds = a.dtype.str
     return (a.dtype.name if ds.startswith(("<V", "|V", ">V")) else ds).encode()
+
+
+def _token_dtype(token: str) -> np.dtype:
+    """The numpy dtype of a blob's dtype token; ``bfloat16`` without
+    ``ml_dtypes`` loaded decodes as its bits, uint16."""
+    try:
+        return np.dtype(token)
+    except TypeError:
+        if token == BF16:
+            return np.dtype(np.uint16)
+        raise
 
 
 def _int_bits(a: np.ndarray) -> np.ndarray:
@@ -290,12 +308,12 @@ def _decode_array(method: int, params: bytes, payload: bytes,
 # raw (legacy) bundle format — byte-compatible with pre-codec blobs
 # ---------------------------------------------------------------------------
 
-def _pack_raw(arrays: dict[str, np.ndarray]) -> bytes:
+def _pack_raw(arrays: dict[str, np.ndarray], bf16=()) -> bytes:
     out = [_struct.pack("<I", len(arrays))]
     for name, a in arrays.items():
         a = np.ascontiguousarray(a)
         nb = name.encode()
-        dt = _dtype_token(a)
+        dt = _dtype_token(a, name in bf16)
         out.append(_struct.pack("<I", len(nb)) + nb)
         out.append(_struct.pack("<I", len(dt)) + dt)
         out.append(_struct.pack("<I", a.ndim) + _struct.pack(f"<{a.ndim}q", *a.shape))
@@ -320,7 +338,7 @@ def _unpack_raw(data: bytes) -> dict[str, np.ndarray]:
             if pos + nraw > len(data):
                 raise CodecError("raw bundle truncated mid-array")
             a = np.frombuffer(data[pos:pos + nraw],
-                              dtype=np.dtype(dt)).reshape(shape)
+                              dtype=_token_dtype(dt)).reshape(shape)
             pos += nraw
             out[name] = a
         return out
@@ -403,7 +421,7 @@ def _decode_nice() -> None:
         hook()
 
 
-def _encode_v2(arrays: dict[str, np.ndarray]) -> bytes:
+def _encode_v2(arrays: dict[str, np.ndarray], bf16=()) -> bytes:
     recs = [_struct.pack("<I", len(arrays))]
     raw_size = 0
     for name, a in arrays.items():
@@ -411,8 +429,10 @@ def _encode_v2(arrays: dict[str, np.ndarray]) -> bytes:
         a = np.ascontiguousarray(a)
         raw_size += a.nbytes
         nb = name.encode()
-        dt = _dtype_token(a)
-        method, params, payload = _encode_array(a)
+        dt = _dtype_token(a, name in bf16)
+        # bf16 bits stay raw: an integer method would decode as values
+        method, params, payload = ((M_RAW, b"", a.tobytes()) if name in bf16
+                                   else _encode_array(a))
         recs.append(_struct.pack("<B", len(nb)) + nb)
         recs.append(_struct.pack("<B", len(dt)) + dt)
         recs.append(_struct.pack("<B", a.ndim)
@@ -478,7 +498,7 @@ def _decode_v2(blob: bytes) -> dict[str, np.ndarray]:
         name = r.take(ln).decode()
         (ld,) = r.unpack("<B")
         try:
-            dtype = np.dtype(r.take(ld).decode())
+            dtype = _token_dtype(r.take(ld).decode())
         except TypeError as e:
             raise CodecError(f"unknown dtype in blob: {e}") from e
         (nd,) = r.unpack("<B")
@@ -496,12 +516,18 @@ def _decode_v2(blob: bytes) -> dict[str, np.ndarray]:
 # public API
 # ---------------------------------------------------------------------------
 
-def encode_blob(arrays: dict[str, np.ndarray], codec: str | None = None) -> bytes:
+def encode_blob(arrays: dict[str, np.ndarray], codec: str | None = None,
+                bf16=()) -> bytes:
+    """``arrays`` as a blob; the names in ``bf16`` are uint16 arrays of
+    bfloat16 bits, written raw under the dtype name ``bfloat16`` (the JAX
+    package's ``ml_dtypes`` arrays are written so, and read back as
+    bfloat16; :func:`decode_blob` gives uint16 bits where ``ml_dtypes`` is
+    not loaded)."""
     name = codec if codec is not None else _default_codec
     if name == "v2":
-        return _encode_v2(arrays)
+        return _encode_v2(arrays, bf16)
     if name == "raw":
-        return _pack_raw(arrays)
+        return _pack_raw(arrays, bf16)
     raise CodecError(f"unknown codec {name!r}; known: {KNOWN_CODECS}")
 
 

@@ -47,10 +47,11 @@ ELIST_COMPONENTS = (ELIST_STRUCT, ELIST_NODEATTR, ELIST_EDGEATTR, ELIST_TRANSIEN
 # array-bundle wire format (delegates to the codec layer)
 # ---------------------------------------------------------------------------
 
-def pack_arrays(arrays: dict[str, np.ndarray]) -> bytes:
+def pack_arrays(arrays: dict[str, np.ndarray], bf16=()) -> bytes:
     """Encode an array bundle with the session's default codec
-    (:func:`repro_torch.storage.codec.get_default_codec`)."""
-    return codec.encode_blob(arrays)
+    (:func:`repro_torch.storage.codec.get_default_codec`); ``bf16`` names
+    uint16 arrays of bfloat16 bits (:func:`codec.encode_blob`)."""
+    return codec.encode_blob(arrays, bf16=bf16)
 
 
 def unpack_arrays(data: bytes) -> dict[str, np.ndarray]:

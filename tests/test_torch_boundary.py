@@ -4,7 +4,10 @@
   interpreter whose import system refuses ``jax`` and ``repro`` (exactly,
   or as a dotted prefix — ``repro_torch`` itself stays importable).
 * Entry points called without ``device=`` run on the card; without one
-  they raise instead of running on the CPU.
+  they raise instead of running on the CPU: retrieval (the rank-local
+  sharded entry too, in a one-rank ``gloo`` group), LM serving, the model
+  builders, and training (``launch/train``, its batches, the optimizer
+  state carried from the reference).
 """
 import dataclasses
 import os
@@ -45,6 +48,8 @@ sys.meta_path.insert(0, Refuse())
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
+missing = set(sys.argv[2].split(",")) - set(names)
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
@@ -56,9 +61,18 @@ print(len(names))
 """
 
 
+# the training slice's modules, which the walk must reach
+_TRAINING_MODULES = ("repro_torch.tree_util", "repro_torch.training.optim",
+                     "repro_torch.training.trainer",
+                     "repro_torch.runtime.compression",
+                     "repro_torch.storage.checkpoint",
+                     "repro_torch.launch.train")
+
+
 def test_port_imports_without_jax_or_repro():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT)],
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT),
+                          ",".join(_TRAINING_MODULES)],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 25     # every module was walked
@@ -148,3 +162,54 @@ def test_attention_inputs_default_to_the_card(no_card):
         torch.zeros(1, 1, 2, 8, device=resolve_device())
     x = torch.zeros(1, 1, 2, 8, device=resolve_device("cpu"))
     assert attention(x, x, x).shape == (1, 1, 2, 8)
+
+
+def test_rank_local_entry_defaults_to_the_card(no_card, small_index):
+    """The rank-local sharded entry in a one-rank gloo group: the default
+    device raises before any collective; ``device="cpu"`` gives the
+    one-launch path's masks."""
+    import socket
+
+    import torch.distributed as dist
+
+    dg, tmax = small_index
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            torch_exec.execute_singlepoint_sharded_rank(dg, tmax,
+                                                        partitions=4)
+        nm, em = torch_exec.execute_singlepoint_sharded_rank(
+            dg, tmax, partitions=4, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    one = torch_exec.execute_singlepoint_sharded_torch(
+        dg, tmax, partitions=4, device="cpu")
+    assert np.array_equal(nm, one[0]) and np.array_equal(em, one[1])
+
+
+def test_training_defaults_to_the_card(no_card):
+    from repro_torch.launch import train
+    from repro_torch.interop import opt_state_from_reference
+
+    cfg = reduced_config("gemma3-1b")
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train("gemma3-1b", steps=1, log=lambda *_: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.synth_batch("gemma3-1b", cfg, rng, 2, 8)
+    state = {"step": np.zeros((), np.int32),
+             "mom": {"w": np.zeros((2, 3), np.float32)}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt_state_from_reference(state)
+    out = train.train("gemma3-1b", steps=1, batch=2, seq=8, device="cpu",
+                      log=lambda *_: None)
+    assert np.isfinite(out["losses"][0])
+    assert train.synth_batch("gemma3-1b", cfg, rng, 2, 8, device="cpu")[
+        "tokens"].shape == (2, 8)
+    carried = opt_state_from_reference(state, device="cpu")
+    assert carried["step"].shape == () and carried["step"].dtype == \
+        torch.int32

@@ -983,3 +983,126 @@ def test_cuda_evolve_ops_match_cpu(cuda_device, churn_managers, op):
                 assert np.allclose(g, w, atol=1e-5)
             else:
                 assert np.array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# training: the prefill kernels' statistics output, the backward, a step
+# ---------------------------------------------------------------------------
+
+def _stats_shapes():
+    return ([("bf16", s) for s in PREFILL_SHAPES] +
+            [("f32", s) for s in F32_PREFILL_SHAPES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", _stats_shapes())
+def test_cuda_prefill_stats_match_plain(cuda_device, dtype, shape):
+    """``attention_stats`` on the card: ``out`` bit for bit the launch
+    without statistics; ``m`` within 1e-5·(1 + |m|) and ``l`` within 1e-4
+    relative of the plain version's (``m`` is kept in the log2 domain and
+    converted by one multiply; ``l`` sums ex2.approx terms in another
+    order); rows with no key ``m = -1e30``, ``l = 0``.  Counted under the
+    kernel's counter and its ``_stats`` counter."""
+    from repro_torch.kernels.flash_attention import (attention_ref_stats,
+                                                     attention_stats)
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator().manual_seed(Sq * Sk + D + Dv + 1)
+    q, k, v = (torch.randn(s, generator=g).to(td) for s in
+               ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    dq, dk, dv = (t.to(cuda_device) for t in (q, k, v))
+    counter = ("flash_attention_prefill" if dtype == "bf16" else
+               "flash_attention_prefill_f32")
+    n0 = launch_counts()
+    out, m, l = attention_stats(dq, dk, dv, **kw)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert {n: n1[n] - n0[n] for n in n0 if n1[n] != n0[n]} == {
+        "flash_attention": 1, counter: 1, f"{counter}_stats": 1}
+    if fa_ops.route(Sq, Hq, Hkv, D, Dv, td) == counter.replace(
+            "flash_attention_", "flash_"):
+        assert torch.equal(out, attention(dq, dk, dv, **kw))
+    want, wm, wl = attention_ref_stats(q, k, v, **kw)
+    tol = dict(rtol=2 ** -6, atol=1e-5) if dtype == "bf16" else dict(
+        rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(out.cpu().float(), want.float(), **tol)
+    m, l = m.cpu(), l.cpu()
+    seen = wl > 0
+    assert torch.equal(l > 0, seen)
+    assert torch.all(m[~seen] == -1e30) and torch.all(l[~seen] == 0)
+    if seen.any():
+        assert float(((m - wm).abs() / (1 + wm.abs()))[seen].max()) <= 1e-5
+        assert float(((l - wl).abs() / wl.clamp(min=1e-30))[seen].max()) \
+            <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 4, 1, 300, 333, 256, 256, True, None, 33),
+    (2, 4, 2, 200, 200, 64, 64, True, 17, 0),
+    (1, 2, 1, 130, 130, 192, 128, True, None, 0),    # MLA prefill dims
+    (1, 4, 1, 600, 600, 128, 128, True, None, 0),    # padded last chunk
+])
+def test_cuda_attention_grad_matches_cpu(cuda_device, dtype, shape):
+    """Gradients through ``attention()`` on the card (the statistics
+    launch, then ``attention_bwd`` in torch ops) against the same on the
+    CPU: within 1e-4 of each gradient's largest magnitude in f32 (the f32
+    kernel's three TF32 products), 2e-2 in bf16 (the card's p keeps
+    2^-16, the CPU's is exact; each gradient rounds to bf16)."""
+    B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, qoff = shape
+    g = torch.Generator().manual_seed(Sq + D)
+    q, k, v = (torch.randn(s, generator=g).to(dtype) for s in
+               ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, Dv)))
+    cot = torch.randn((B, Hq, Sq, Dv), generator=g)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        ts = [t.detach().clone().to(dev).requires_grad_(True)
+              for t in (q, k, v)]
+        out = attention(*ts, **kw)
+        (out.float() * cot.to(dev)).sum().backward()
+        grads[str(dev)] = [t.grad.cpu().float() for t in ts]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(grads[str(cuda_device)], grads["cpu"]):
+        assert float((got - want).abs().max()) <= \
+            tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One momentum-SGD step (linear in the gradient) of reduced gemma3-1b
+    in f32 through ``make_train_step`` on the card and on the CPU from the
+    same weights: the loss within 1e-5 relative, each parameter's change
+    within 1e-4 of its largest magnitude (the gradients' bound)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training import optim
+    from repro_torch.training.trainer import make_train_step
+    from repro_torch.tree_util import flatten_with_paths, tree_map
+
+    cfg = dataclasses.replace(reduced_config("gemma3-1b"),
+                              dtype=torch.float32)
+    cpu = init_params(tm.param_defs(cfg), torch.Generator().manual_seed(0),
+                      "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 24),
+                           generator=torch.Generator().manual_seed(1))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        params = tree_map(lambda t: t.to(dev), cpu)
+        opt = optim.sgd(lr=0.1)
+        step = make_train_step(lambda p, b: tm.loss_fn(p, b, cfg), opt)
+        new, _, met = step(params, opt[0](params),
+                           {"tokens": tokens.to(dev)})
+        res[str(dev)] = (float(met["loss"]), {
+            p: (x.cpu() - y.cpu()) for (p, x), (_, y) in zip(
+                flatten_with_paths(new), flatten_with_paths(params))})
+    (l_cpu, d_cpu), (l_dev, d_dev) = res["cpu"], res[str(cuda_device)]
+    assert abs(l_dev - l_cpu) <= 1e-5 * l_cpu
+    for p, w in d_cpu.items():
+        assert float((d_dev[p] - w).abs().max()) <= \
+            1e-4 * float(w.abs().max()), p
