@@ -174,6 +174,37 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    temporary directory) and the resume, whose losses, parameters and
    optimizer state equal the uninterrupted run's bit for bit; one pass at
    ``accum_steps = 4`` (B 8).
+10. GNN and DIN: (a) the temporal GCN of
+   ``examples/pt_temporal_gnn_train.py`` (d_in 16, d_hidden 32, 2 layers,
+   AdamW at 5e-3) on the main history, through the example's own
+   functions: two ``SnapshotBatchLoader`` windows of 4 points of its grid
+   feed 8 steps; launch counts zeroed before and read after (2 fused and
+   16 segment-sum launches a window, the sweep's chain launches); the
+   first window against ``replay``; the first step's loss and gradients
+   on the card against the CPU's from the same parameters and batch; a
+   checkpoint through ``LogFileKV`` read back bit for bit.  (b) gcn-cora
+   at ``full_graph_sm``, gin-tu at ``molecule`` (128 graphs, a readout),
+   meshgraphnet and dimenet at ``minibatch_lg`` on a ``sample_blocks``
+   block (1,024 seeds, fanouts (15, 10), padded to 169,984 nodes and
+   168,960 edge slots; dimenet 675,840 triplets) of the main history's
+   last snapshot: published widths, the config adapted to the shape, 4
+   AdamW steps on one seeded batch (loss finite and falling), the first
+   gradient's global norm in f64 and f32; each reduced config on the card
+   against the CPU; meshgraphnet at 32 gather chunks against none, both
+   in f64 on the card (so that the comparison sees the chunking, not the
+   atomics' order of additions; the decoder, f32 in the model, stays
+   f32), loss and gradients within 1e-5 / 1e-4.
+   (c)
+   DIN at its published config (a 10 M-row goods table): 4 steps through
+   ``launch/train`` at B 65,536 (loss finite and falling), the reduced
+   config on the card against the CPU, ``din_retrieval`` of one user
+   against 1,000,000 candidates against the CPU's (1e-5 relative), and
+   ``launch/serve``'s DIN mode at B 512 and 262,144.  Card against CPU:
+   the loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+   largest CPU magnitude (``index_add_`` adds with float atomics on the
+   card; deterministic algorithms are not turned on).  Each part prints
+   its wall seconds, ms a step and peak GiB; the three retrieval kernels'
+   records gain the launches of (a) (``temporal_gcn_launches``).
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -183,6 +214,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import re
@@ -265,6 +297,21 @@ STATS_M_TOL, STATS_L_TOL = 1e-5, 1e-4
 # rank-local sharded retrieval: 2 gloo ranks sharing the card, 8
 # word_cyclic partitions (4 rows a rank), on a churn history
 RANK_WORLD = 2
+# GNN and DIN (phase 10): the example's temporal GCN on GCN_WINDOWS loader
+# windows of the main history; each GNN architecture at its published
+# widths on one batch of a shape of configs/shapes.py (ogb_products, 61.9 M
+# edges, is left out: one card cannot hold it), GNN_STEPS AdamW steps at a
+# constant GNN_LR (the launcher's default; GIN's loss overshoots at 1e-3
+# on some seeds); MeshGraphNet at the reference's 32 gather chunks for
+# large graphs against none (in f64); DIN at its published config through
+# launch/train (DIN_STEPS steps under its warmup_cosine from DIN_LR) and
+# launch/serve.  Card against CPU in f32 within 1e-5 (loss, relative) and
+# GRAD_TOL (gradients): aggregation on the card adds with float atomics
+GCN_WINDOWS = 2
+GNN_CELLS = (("gcn-cora", "full_graph_sm"), ("gin-tu", "molecule"),
+             ("meshgraphnet", "minibatch_lg"), ("dimenet", "minibatch_lg"))
+GNN_STEPS, GNN_LR, MGN_CHUNKS = 4, 3e-4, 32
+DIN_STEPS, DIN_LR = 4, 1e-2
 
 
 def fail(msg: str) -> None:
@@ -445,15 +492,13 @@ def loader_window(gm, ev, times, horizon, dev, label):
     ``bucket_edges`` seconds inside it."""
     import importlib
 
-    import numpy as np
     import torch
 
     from repro_torch import kernels
-    from repro_torch.core import SnapshotBatchLoader, replay
+    from repro_torch.core import SnapshotBatchLoader
 
     ss_ops = importlib.import_module("repro_torch.kernels.segment_sum.ops")
     uni = gm.universe
-    N, E = uni.num_nodes, uni.num_edges
     bucket = ss_ops.bucket_edges
     spent = []
 
@@ -483,6 +528,20 @@ def loader_window(gm, ev, times, horizon, dev, label):
     check(launches["segment_sum_bucketed"] == 2 * 2 * T, f"{label}: loader "
           f"launched segment-sum {launches['segment_sum_bucketed']} times "
           f"for 2 degree passes of {T} points")
+    check_loader_batch(uni, ev, batch, times, horizon, dev, label)
+    return {"launches": launches, "wall_s": wall,
+            "bucket_edges_s": sum(spent), "bucket_edges_calls": len(spent)}
+
+
+def check_loader_batch(uni, ev, batch, times, horizon, dev, label) -> None:
+    """A ``SnapshotBatchLoader`` window at ``times`` against ``replay``:
+    its tensors on ``dev``, its shapes, edge and label masks, edge counts,
+    raw degrees and labels at every point."""
+    import numpy as np
+
+    from repro_torch.core import replay
+
+    N, E, T = uni.num_nodes, uni.num_edges, len(times)
     check(all(v.device.type == dev.type for k, v in batch.items()
               if k != "times"), f"{label}: batch tensors off the device")
     check(batch["x"].shape == (T, N, 16) and batch["edge_mask"].shape ==
@@ -507,8 +566,6 @@ def loader_window(gm, ev, times, horizon, dev, label):
         fut = live_degrees(uni, replay(uni, ev, t + horizon).edge_mask)
         check(np.array_equal(labels[j], (fut > deg).astype(np.int32)),
               f"{label}: loader labels t={t}")
-    return {"launches": launches, "wall_s": wall,
-            "bucket_edges_s": sum(spent), "bucket_edges_calls": len(spent)}
 
 
 def evolve_phase(gm, ev, dev) -> dict:
@@ -2048,7 +2105,7 @@ def reduced_grads(dev) -> dict:
     from repro_torch.models.common import init_params
     from repro_torch.models.transformer import model as tm
     from repro_torch.training.trainer import value_and_grad
-    from repro_torch.tree_util import flatten_with_paths, path_name, tree_map
+    from repro_torch.tree_util import tree_map
 
     out = {}
     for arch in GRAD_ARCHS:
@@ -2068,14 +2125,7 @@ def reduced_grads(dev) -> dict:
         (loss_d, _), g_dev = value_and_grad(
             lambda p, b: tm.loss_fn(p, b, cfg), card,
             {"tokens": tokens.to(dev)})
-        want = {path_name(p): x for p, x in flatten_with_paths(g_cpu)}
-        worst, at = 0.0, None
-        for p, x in flatten_with_paths(g_dev):
-            w = want[path_name(p)]
-            scale = float(w.abs().max())
-            err = float((x.cpu() - w).abs().max()) / (scale or 1.0)
-            if err > worst:
-                worst, at = err, path_name(p)
+        worst, at = worst_leaf(g_cpu, g_dev)
         check(worst <= GRAD_TOL, f"{arch} reduced f32: gradient {at} off by "
               f"{worst} of its largest magnitude on the card")
         check(abs(float(loss_d) - float(loss)) <= 1e-5 * float(loss),
@@ -2305,6 +2355,478 @@ def train_phase(dev) -> list[dict]:
         recs.append(rec)
     return recs
 
+
+def load_example(root: Path):
+    """``examples/pt_temporal_gnn_train.py`` of the checkout at ``root``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "pt_temporal_gnn_train",
+        root / "examples" / "pt_temporal_gnn_train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worst_leaf(g_cpu, g_dev, zero=()) -> tuple[float, str]:
+    """The largest |got - want| of a gradient leaf (``g_dev`` against
+    ``g_cpu``, compared on the host) over that leaf's largest magnitude in
+    ``g_cpu``, and its leaf; a leaf in ``zero`` (exact gradient 0) over
+    the tree's largest magnitude instead."""
+    from repro_torch.tree_util import flatten_with_paths, path_name
+
+    want = {path_name(p): x for p, x in flatten_with_paths(g_cpu)}
+    top = max(float(w.abs().max()) for w in want.values())
+    worst, at = 0.0, None
+    for p, x in flatten_with_paths(g_dev):
+        w = want[path_name(p)].cpu()
+        scale = top if path_name(p) in zero else float(w.abs().max())
+        err = float((x.cpu() - w).abs().max()) / (scale or 1.0)
+        if err > worst:
+            worst, at = err, path_name(p)
+    return worst, at
+
+
+def card_against_cpu(loss_fn, params, batch, dev, zero=()) -> dict:
+    """``loss_fn``'s loss and gradients on the card against the CPU's, from
+    the same parameters and batch moved to the host: the loss within 1e-5
+    relative, every leaf within GRAD_TOL (``worst_leaf``)."""
+    import torch
+
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree_util import tree_map
+
+    def on(d, b):
+        return {k: v.to(d) if isinstance(v, torch.Tensor) else v
+                for k, v in b.items()}
+
+    (l_dev, _), g_dev = value_and_grad(loss_fn, tree_map(
+        lambda t: t.to(dev), params), on(dev, batch))
+    (l_cpu, _), g_cpu = value_and_grad(loss_fn, tree_map(
+        lambda t: t.cpu(), params), on("cpu", batch))
+    worst, at = worst_leaf(g_cpu, g_dev, zero)
+    rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    return {"loss_rel_err": rel, "worst_grad_err": worst, "worst_leaf": at}
+
+
+def hold_card_against_cpu(res: dict, label: str) -> None:
+    check(res["loss_rel_err"] <= 1e-5 and res["worst_grad_err"] <= GRAD_TOL,
+          f"{label}: card against CPU {res}")
+
+
+def temporal_gcn(gm, ev, dev, root: Path) -> dict:
+    """Phase 10(a): the example's GCN trained on GCN_WINDOWS loader windows
+    of the main history through the example's own functions."""
+    import itertools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models.gnn import gnn_loss
+    from repro_torch.storage.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
+    from repro_torch.storage.kv import LogFileKV
+
+    ex = load_example(root)
+    uni = gm.universe
+    tmax = int(ev.time[-1])
+    T = ex.BATCH_SIZE
+    times = ex.time_grid(tmax)[:GCN_WINDOWS * T]
+    horizon = tmax // 10
+    loader = ex.make_loader(gm, times, tmax)
+    windows, window_s = [], []
+
+    class Recorded:
+        """The loader, each window kept and its seconds taken."""
+
+        def __iter__(self):
+            it = iter(loader)
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b = next(it, None)
+                torch.cuda.synchronize()
+                if b is None:
+                    return
+                window_s.append(time.perf_counter() - t0)
+                windows.append(b)
+                yield b
+
+    params = ex.init_model(ex.CFG, dev)
+    opt, step_fn = ex.make_step()
+    opt_state = opt[0](params)
+    steps = GCN_WINDOWS * T
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t_all = time.perf_counter()
+    stream = ex.snapshot_stream(Recorded())
+    first = next(stream)
+    grads = card_against_cpu(lambda p, b: gnn_loss(p, b, ex.CFG), params,
+                             first, dev)
+    t0 = time.perf_counter()
+    params, opt_state, losses = ex.train_steps(
+        step_fn, params, opt_state, itertools.chain([first], stream), 0,
+        steps, log=lambda *_: None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_all
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(len(windows) == GCN_WINDOWS, f"temporal GCN: {len(windows)} "
+          f"windows for {steps} steps")
+    check(launches["delta_apply_fused"] == 2 * GCN_WINDOWS and
+          launches["segment_sum_bucketed"] == 4 * T * GCN_WINDOWS and
+          launches["delta_apply_chain"] > 0, f"temporal GCN: launches "
+          f"{launches}, not 2 fused and {4 * T} segment-sum a window and "
+          f"some chain launches")
+    check_loader_batch(uni, ev, windows[0], times[:T], horizon, dev,
+                       "temporal GCN")
+    check(all(np.isfinite(losses)), f"temporal GCN losses {losses}")
+    hold_card_against_cpu(grads, "temporal GCN first step")
+    with tempfile.TemporaryDirectory() as ckdir:
+        store = LogFileKV(ckdir)
+        save_checkpoint(store, steps, (params, opt_state))
+        store.close()
+        store = LogFileKV(ckdir)
+        (p, s), _, at = restore_checkpoint(store, like=(params, opt_state))
+        store.close()
+    check(at == steps and differing_leaf(params, p) is None and
+          differing_leaf(opt_state, s) is None,
+          "temporal GCN: the checkpoint does not read back bit for bit")
+    # the steps' own time: the training wall less the second window's
+    step_ms = (train_s - sum(window_s[1:])) / steps * 1e3
+    rec = {"nodes": uni.num_nodes, "edge_slots": 2 * uni.num_edges,
+           "times": times, "horizon": horizon, "window_s": window_s,
+           "wall_s": wall, "ms_per_step": step_ms, "losses": losses,
+           "peak_gib": peak, "launches": launches, "first_step": grads,
+           "checkpoint_bit_for_bit": True}
+    print(f"gnn: (a) temporal GCN on {GCN_WINDOWS} loader windows of {T} "
+          f"points of the main history ({uni.num_nodes} nodes, "
+          f"{2 * uni.num_edges} edge slots): wall {wall:.3f} s, windows "
+          f"{[round(w, 3) for w in window_s]} s, {step_ms:.3f} ms a step, "
+          f"peak {peak:.3f} GiB; {json.dumps(rec)}")
+    return rec
+
+
+def gnn_cell_batch(cfg, shape, rng, block=None) -> dict:
+    """A batch of ``shape`` for ``cfg``, drawn from ``rng`` as the train
+    launcher's ``synth_batch`` draws (its fields in its order), at the
+    shape's padded sizes: a random graph (GIN: 4-node molecules, a
+    graph-level readout), or a sampler ``block``'s edges (sampled
+    shapes)."""
+    import numpy as np
+    import torch
+
+    if block is not None:
+        N, E = block.nodes.size, block.edge_index.shape[1]
+        ei = block.edge_index
+    else:
+        N, E = shape.padded()
+        src = rng.integers(0, N, E // 2).astype(np.int32)
+        if cfg.kind == "gin":
+            per = N // shape.n_graphs
+            dst = (src // per * per + rng.integers(0, per, E // 2)).astype(
+                np.int32)
+        else:
+            dst = rng.integers(0, N, E // 2).astype(np.int32)
+        ei = np.stack([np.concatenate([src, dst]), np.concatenate([dst,
+                                                                   src])])
+    b = {"edge_index": ei}
+    f32 = np.float32
+    if cfg.kind == "gcn":
+        b.update(x=rng.standard_normal((N, cfg.d_in)).astype(f32),
+                 labels=rng.integers(0, cfg.n_classes, N).astype(np.int32),
+                 label_mask=np.ones(N, f32))
+    elif cfg.kind == "gin":
+        G = shape.n_graphs
+        b.update(x=rng.standard_normal((N, cfg.d_in)).astype(f32),
+                 labels=rng.integers(0, cfg.n_classes, G).astype(np.int32),
+                 label_mask=np.ones(G, f32),
+                 graph_ids=(np.arange(N) * G // N).astype(np.int32),
+                 node_mask=np.ones(N, f32), n_graphs=G)
+    elif cfg.kind == "meshgraphnet":
+        b.update(x=rng.standard_normal((N, cfg.d_node_in)).astype(f32),
+                 edge_attr=rng.standard_normal((E, cfg.d_edge_in)).astype(
+                     f32),
+                 target=rng.standard_normal((N, cfg.d_out)).astype(f32),
+                 node_mask=block.node_mask.astype(f32))
+    else:
+        b.update(z=rng.integers(1, 10, N).astype(np.int32),
+                 pos=rng.standard_normal((N, 3)).astype(f32),
+                 triplet_kj=rng.integers(0, E, 4 * E).astype(np.int32),
+                 triplet_ji=rng.integers(0, E, 4 * E).astype(np.int32),
+                 graph_ids=np.zeros(N, np.int32),
+                 target=rng.standard_normal((1, cfg.d_out)).astype(f32),
+                 n_graphs=1)
+    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for k, v in b.items()}
+
+
+def sampled_block(gm, tmax: int, shape, dev):
+    """A ``sample_blocks`` + ``pad_blocks`` block of ``shape`` (its seeds
+    and fanouts) from the history's last snapshot, retrieved on the card;
+    padded as the reference's sampled cell (``sampled_shapes`` rounded to
+    512)."""
+    import numpy as np
+
+    from repro_torch.graph.csr import build_csr
+    from repro_torch.graph.sampler import (pad_blocks, sample_blocks,
+                                           sampled_shapes)
+    from repro_torch.runtime import torch_exec
+
+    uni = gm.universe
+    nm, em = torch_exec.execute_singlepoint_torch(gm.dg, tmax, device=dev)
+    csr = build_csr(uni.edge_src, uni.edge_dst, uni.num_nodes, em,
+                    uni.edge_directed)
+    rng = np.random.default_rng(SEED)
+    seeds = rng.choice(np.nonzero(nm)[0], shape.batch_nodes, replace=False)
+    block = sample_blocks(csr, seeds, list(shape.fanouts), rng)
+    n_raw, e_raw = sampled_shapes(shape.batch_nodes, list(shape.fanouts))
+    return pad_blocks(block, -(-n_raw // 512) * 512, -(-e_raw // 512) * 512)
+
+
+def gnn_cells(gm, tmax: int, dev) -> dict:
+    """Phase 10(b): each GNN architecture at its published widths, the
+    config adapted to its shape as the reference's cell adapts it, on one
+    seeded batch of that shape: GNN_STEPS AdamW steps; its reduced config
+    on the card against the CPU; MeshGraphNet at MGN_CHUNKS gather chunks
+    against the unchunked step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch, reduced_config
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch import train as tr
+    from repro_torch.models.common import init_params
+    from repro_torch.training.optim import OPTIMIZERS
+    from repro_torch.training.trainer import make_train_step, value_and_grad
+    from repro_torch.tree_util import leaves
+
+    t0 = time.perf_counter()
+    block = sampled_block(gm, tmax, GNN_SHAPES["minibatch_lg"], dev)
+    print(f"gnn: sampled block of the last snapshot: "
+          f"{int(block.node_mask.sum())} nodes, "
+          f"{int(block.edge_mask.sum())} live edges, padded to "
+          f"{block.nodes.size}, {block.edge_index.shape[1]} "
+          f"({time.perf_counter() - t0:.3f} s)")
+    out = {}
+    for arch, shape_name in GNN_CELLS:
+        t_arch = time.perf_counter()
+        shape = GNN_SHAPES[shape_name]
+        cfg, opt_name = get_arch(arch)
+        if cfg.kind in ("gcn", "gin"):
+            cfg = dataclasses.replace(cfg, d_in=shape.d_feat,
+                                      n_classes=shape.n_classes)
+        elif cfg.kind == "meshgraphnet":
+            cfg = dataclasses.replace(cfg, d_node_in=shape.d_feat)
+        batch = gnn_cell_batch(cfg, shape, np.random.default_rng(SEED),
+                               block if shape.kind == "sampled" else None)
+        batch = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                 for k, v in batch.items()}
+        loss_fn, defs = tr.make_loss(arch, cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(defs, gen, dev)
+        opt = OPTIMIZERS[opt_name](lr=GNN_LR)
+        step = make_train_step(loss_fn, opt)
+        state = opt[0](params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the first gradient's global norm, in f64 and as AdamW's clip
+        # takes it in f32 (an f32 overflow there zeroes the whole update)
+        _, g = value_and_grad(loss_fn, params, batch)
+        norm64 = math.sqrt(sum(float(torch.sum(x.double() ** 2))
+                               for x in leaves(g)))
+        norm32 = float(torch.sqrt(sum(torch.sum(x.float() ** 2)
+                                      for x in leaves(g))))
+        del g
+        losses, step_ms = [], []
+        for _ in range(GNN_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{arch} at {shape_name}: losses {losses}")
+        rcfg = reduced_config(arch)
+        rloss, rdefs = tr.make_loss(arch, rcfg)
+        rparams = init_params(rdefs, torch.Generator().manual_seed(SEED),
+                              "cpu")
+        reduced = card_against_cpu(rloss, rparams, tr.synth_batch(
+            arch, rcfg, np.random.default_rng(SEED), 4, 8, "cpu"), dev)
+        hold_card_against_cpu(reduced, f"{arch} reduced")
+        edges = batch["edge_index"].shape[1]
+        nodes = (batch["x"] if "x" in batch else batch["z"]).shape[0]
+        rec = {"shape": shape_name, "nodes": nodes, "edge_slots": edges,
+               "losses": losses, "ms_per_step": step_ms,
+               "steady_ms_per_step": statistics.median(step_ms[1:]),
+               "peak_gib": peak, "grad_norm_f64": norm64,
+               "grad_norm_f32": norm32,
+               "clip_zeroes_update": not math.isfinite(norm32),
+               "reduced_card_against_cpu": reduced}
+        if cfg.kind == "dimenet":
+            rec["triplets"] = int(batch["triplet_kj"].shape[0])
+        if cfg.kind == "meshgraphnet":
+            # in f64, where the float atomics' order of additions is far
+            # below the limit (in f32 it alone reached 8.5e-5 of a leaf's
+            # largest magnitude at this block, PERF.md); the decoder,
+            # which the model runs in f32, and its target stay f32
+            f64 = dataclasses.replace(cfg, act_dtype=torch.float64)
+            p64 = {k: v if k.startswith("dec_") else v.double()
+                   for k, v in params.items()}
+            b64 = {k: v.double() if k != "target" and isinstance(
+                v, torch.Tensor) and v.is_floating_point() else v
+                for k, v in batch.items()}
+            res = {}
+            for c in (f64, dataclasses.replace(f64,
+                                               gather_chunks=MGN_CHUNKS)):
+                lf, _ = tr.make_loss(arch, c)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (loss, _), g = value_and_grad(lf, p64, b64)
+                torch.cuda.synchronize()
+                res[c.gather_chunks] = (float(loss), g,
+                                        (time.perf_counter() - t0) * 1e3)
+            del p64, b64
+            (l0, g0, ms0), (l1, g1, ms1) = res[0], res[MGN_CHUNKS]
+            worst, at = worst_leaf(g0, g1)
+            rel = abs(l1 - l0) / abs(l0)
+            check(rel <= 1e-5 and worst <= GRAD_TOL, f"meshgraphnet: "
+                  f"{MGN_CHUNKS} gather chunks against none: loss "
+                  f"{rel}, gradient {at} {worst}")
+            rec["gather_chunks"] = {"chunks": MGN_CHUNKS, "dtype": "f64",
+                                    "loss_rel_err": rel,
+                                    "worst_grad_err": worst, "worst_leaf": at,
+                                    "unchunked_ms": ms0, "chunked_ms": ms1}
+        rec["wall_s"] = time.perf_counter() - t_arch
+        print(f"gnn: (b) {arch} at {shape_name}: wall {rec['wall_s']:.3f} s, "
+              f"{rec['steady_ms_per_step']:.3f} ms a step, peak "
+              f"{peak:.3f} GiB; {json.dumps(rec)}")
+        out[arch] = rec
+        del params, state, batch, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def din_phase(dev) -> dict:
+    """Phase 10(c): DIN at its published config: DIN_STEPS AdamW steps
+    through ``launch/train`` at ``train_batch``; serving through
+    ``launch/serve``'s DIN mode at ``serve_p99`` and ``serve_bulk``;
+    ``din_retrieval`` at ``retrieval_cand`` against the CPU's; the
+    reduced DIN's gradients on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch, reduced_config
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as tr
+    from repro_torch.models.common import init_params
+    from repro_torch.models.recsys.din import din_retrieval
+    from repro_torch.tree_util import tree_map
+
+    t_part = time.perf_counter()
+    cfg, _ = get_arch("din")
+    B = RECSYS_SHAPES["train_batch"].batch
+    batch = tr.synth_batch("din", cfg, np.random.default_rng(SEED), B, 0,
+                           dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = tr.train("din", full_config=True, steps=DIN_STEPS, batch=B,
+                   lr=DIN_LR, device=dev, data=lambda step: batch,
+                   log=lambda *_: None)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = res["losses"]
+    step_ms = [s * 1e3 for s in res["step_s"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"din training losses {losses}")
+    rcfg = reduced_config("din")
+    rloss, rdefs = tr.make_loss("din", rcfg)
+    reduced = card_against_cpu(
+        rloss, init_params(rdefs, torch.Generator().manual_seed(SEED),
+                           "cpu"),
+        tr.synth_batch("din", rcfg, np.random.default_rng(SEED), 64, 0,
+                       "cpu"), dev, zero=("attn_b2",))
+    hold_card_against_cpu(reduced, "din reduced")
+    train = {"batch": B, "losses": losses, "ms_per_step": step_ms,
+             "steady_ms_per_step": statistics.median(step_ms[1:]),
+             "peak_gib": peak, "reduced_card_against_cpu": reduced}
+    print(f"din: (c) train_batch B {B}, {DIN_STEPS} AdamW steps through "
+          f"launch/train: wall {time.perf_counter() - t_part:.3f} s, "
+          f"{train['steady_ms_per_step']:.3f} ms a step, peak {peak:.3f} "
+          f"GiB; {json.dumps(train)}")
+
+    # retrieval: one user against every candidate in one product, from
+    # the trained weights, against the CPU's
+    params = res["params"]
+    del res, batch
+    torch.cuda.empty_cache()
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    rng = np.random.default_rng(SEED)
+    S, Nc = cfg.seq_len, shape.n_candidates
+    rb = {"hist_goods": rng.integers(0, cfg.n_goods, (shape.batch, S)),
+          "hist_cates": rng.integers(0, cfg.n_cates, (shape.batch, S)),
+          "hist_mask": rng.random((shape.batch, S)) < 0.8,
+          "cand_goods": rng.integers(0, cfg.n_goods, (shape.batch, Nc)),
+          "cand_cates": rng.integers(0, cfg.n_cates, (shape.batch, Nc))}
+    rb = {k: torch.from_numpy(v.astype(np.int32) if v.dtype != bool else v)
+          for k, v in rb.items()}
+    card_b = {k: v.to(dev) for k, v in rb.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        got = din_retrieval(params, card_b, cfg)
+        ms = cuda_ms(lambda: din_retrieval(params, card_b, cfg), 10)
+        want = din_retrieval(tree_map(lambda t: t.cpu(), params), rb, cfg)
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    check(got.shape == (shape.batch, Nc) and bool(torch.isfinite(got).all())
+          and rel <= 1e-5, f"din_retrieval against the CPU: {rel}")
+    retrieval = {"candidates": Nc, "ms": ms, "rel_err": rel,
+                 "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    print(f"din: (c) retrieval_cand, one user x {Nc} candidates in one "
+          f"product: {ms:.4f} ms, relative error against the CPU {rel:.3e}, "
+          f"peak {retrieval['peak_gib']:.3f} GiB")
+    del params, got, card_b
+    torch.cuda.empty_cache()
+
+    served = {}
+    for name in ("serve_p99", "serve_bulk"):
+        Bs = RECSYS_SHAPES[name].batch
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        r = serve.serve_din(Bs, device=dev, seed=SEED)
+        check(r["scores"].shape == (Bs,) and
+              bool(torch.isfinite(r["scores"]).all()),
+              f"din serving at {name}: scores")
+        served[name] = {"batch": Bs, "ms_per_batch": r["ms_per_batch"],
+                        "scores_per_s": r["scores_per_s"],
+                        "peak_gib": torch.cuda.max_memory_allocated(dev)
+                        / 2 ** 30, "wall_s": time.perf_counter() - t0}
+        print(f"din: (c) serving at {name} (B {Bs}) through launch/serve: "
+              f"wall {served[name]['wall_s']:.3f} s, "
+              f"{r['ms_per_batch']:.4f} ms a batch, "
+              f"{r['scores_per_s']:.0f} scores/s, peak "
+              f"{served[name]['peak_gib']:.3f} GiB")
+        del r
+        torch.cuda.empty_cache()
+    return {"train": train, "retrieval": retrieval, "serve": served}
+
+
+def gnn_din_phase(gm, ev, dev, root: Path) -> dict:
+    """Phase 10: GNN and DIN on the card (see the module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"temporal_gcn": temporal_gcn(gm, ev, dev, root)}
+    torch.cuda.empty_cache()
+    out["gnn"] = gnn_cells(gm, int(ev.time[-1]), dev)
+    out["din"] = din_phase(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"gnn/din: phase {out['phase_s']:.3f} s")
+    return out
 
 def main() -> int:
     import torch
@@ -2712,7 +3234,6 @@ def main() -> int:
           f"streamed) and a loader window (launches "
           f"{json.dumps(clw['launches'])}) agree with replay "
           f"({time.perf_counter() - t0:.3f} s)")
-    gm.close()
 
     # ------------------------------------------------------------ LM serving
     record.extend(lm_phase(dev))
@@ -2723,6 +3244,14 @@ def main() -> int:
 
     # -------------------------------------------------------------- training
     record.extend(train_phase(dev))
+
+    # ----------------------------------------------------------- GNN and DIN
+    gnn_din = gnn_din_phase(gm, ev, dev, src.parent)
+    gm.close()
+    for rec in record:
+        if rec["name"] in RETRIEVAL_KERNELS:
+            rec["temporal_gcn_launches"] = gnn_din["temporal_gcn"][
+                "launches"][rec["name"]]
 
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

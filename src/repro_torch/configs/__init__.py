@@ -1,2 +1,2 @@
-"""Model configurations of the port: the LM architectures and their
-lookups (``registry``)."""
+"""Model configurations of the port: the LM, GNN and DIN architectures,
+their input shapes and their lookups (``registry``)."""

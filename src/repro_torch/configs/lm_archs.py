@@ -2,9 +2,9 @@
 package's ``configs/lm_archs.py`` with the port's config classes.
 
 The optimizer name beside each config is the training choice of the
-reference (adamw for the dense models, adafactor for the two MoEs); the
-port serves only, so far.  All five run in the port; on one card the
-two MoE models serve at full width and a cut depth (``chip_smoke.py``).
+reference (adamw for the dense models, adafactor for the two MoEs).  All
+five run in the port; on one card the two MoE models serve at full width
+and a cut depth (``chip_smoke.py``).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Carry state from the JAX package into the port, from plain values only.
 
-* :func:`params_from_reference`: a language model's parameter tree (numpy
-  leaves) as the port's tensors.
+* :func:`params_from_reference`: a model's parameter tree (numpy leaves),
+  of any architecture, as the port's tensors.
 * :func:`load_reference_index`: the JAX package's slot
 registries (:func:`universe_arrays`) and its store's ``{key: blob}`` items
 after ``DeltaGraph.save_skeleton()`` are enough to rebuild the port's
@@ -105,20 +105,34 @@ def _leaf_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy()).reshape(shape)
 
 
+def _param_defs_of(cfg) -> dict:
+    """The port's parameter definitions for a config of any family."""
+    from .models.gnn import gnn_param_defs
+    from .models.recsys import DINConfig, din_param_defs
+    from .models.transformer import TransformerConfig, param_defs
+
+    if isinstance(cfg, TransformerConfig):
+        return param_defs(cfg)
+    if isinstance(cfg, DINConfig):
+        return din_param_defs(cfg)
+    return gnn_param_defs(cfg)
+
+
 def params_from_reference(tree: Mapping[str, Any], cfg, device="cuda"
                           ) -> dict[str, Any]:
-    """The port's LM parameters from the JAX package's tree.
+    """The port's parameters from the JAX package's tree.
 
     ``tree`` is the nested dict of ``init_params`` (or a checkpoint) with
-    each leaf converted by ``np.asarray``; ``cfg`` the port's
-    :class:`~repro_torch.models.transformer.TransformerConfig`.  Both
-    packages keep the stacked ``group{gi}/<name> [L, ...]`` layout, so the
-    carry is leaf for leaf; keys, shapes and dtypes are checked against
-    the port's :func:`~repro_torch.models.transformer.param_defs`.  The
-    tensors land on the card unless ``device="cpu"`` (the default raises
-    without one)."""
-    from .models.transformer import param_defs
-
+    each leaf converted by ``np.asarray``; ``cfg`` the port's config of
+    any architecture: a
+    :class:`~repro_torch.models.transformer.TransformerConfig` (both
+    packages keep the stacked ``group{gi}/<name> [L, ...]`` layout), a GNN
+    config of :mod:`repro_torch.models.gnn` or a
+    :class:`~repro_torch.models.recsys.DINConfig`.  The carry is leaf for
+    leaf; keys, shapes and dtypes are checked against the port's
+    ``param_defs``, ``gnn_param_defs`` or ``din_param_defs``.  The tensors
+    land on the card unless ``device="cpu"`` (the default raises without
+    one)."""
     device = resolve_device(device)
 
     def carry(defs, sub, path):
@@ -137,7 +151,7 @@ def params_from_reference(tree: Mapping[str, Any], cfg, device="cuda"
             out[key] = t.to(device)
         return out
 
-    return carry(param_defs(cfg), tree, "")
+    return carry(_param_defs_of(cfg), tree, "")
 
 
 _OPT_STATE_KEYS = ({"step", "m", "v", "master"}, {"step", "stats"},

@@ -5,6 +5,8 @@ and the snapshot-retrieval front ends.
         --arch gemma3-1b --reduced --device cpu     # reduced width, host
     PYTHONPATH=src python -m repro_torch.launch.serve --mode model \\
         --arch gemma3-1b --batch 8 --prompt 4096 --gen 32   # full, card
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode model \\
+        --arch din --batch 512                  # published config, card
     PYTHONPATH=src python -m repro_torch.launch.serve --mode evolve \\
         --events 20000 --intervals 8 --points 32 --op pagerank   # card
     echo '{"kind": "multipoint", "times": [50, 150]}' | \\
@@ -13,11 +15,14 @@ and the snapshot-retrieval front ends.
 
 ``--mode model`` is the counterpart of ``repro/launch/serve.py::serve_lm``
 for the five LM architectures (dense GQA, deepseek-v3's MLA + MoE,
-arctic's dense ∥ MoE).  Weights are random, from a seeded
-``torch.Generator``; the prompt is ``numpy.random.default_rng(seed)``
-token ids.  The reference always runs the reduced config on its host;
-here ``reduced=True`` selects it, and the card runs the full width (the
-two MoE models at a depth one card holds: ``load_lm(cfg=...)``).
+arctic's dense ∥ MoE), and with ``--arch din`` of ``serve_din``: ms a
+batch and scores a second of ``din_forward`` at ``--batch``.  Weights are
+random, from a seeded ``torch.Generator``; the prompt is
+``numpy.random.default_rng(seed)`` token ids.  The reference always runs
+the reduced config on its host; here ``reduced=True`` selects it, and the
+card runs the full width (the two MoE models at a depth one card holds:
+``load_lm(cfg=...)``; DIN at its published config, a 10 M-row goods
+table).
 
 ``--mode evolve`` is the counterpart of ``serve_evolve``: dense
 evolutionary-query windows through the incremental temporal engine and
@@ -50,7 +55,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from ..configs.registry import ARCH_IDS, get_arch, reduced_config
+from ..configs.registry import (ARCH_IDS, family_of, get_arch,
+                                reduced_config)
 from ..kernels.policy import resolve_device
 from ..models.common import init_params
 from ..models.transformer import model as tm
@@ -593,6 +599,39 @@ def serve_lm(arch: str, batch: int, prompt_len: int, gen: int, *,
     return {**res, "config": cfg}
 
 
+def serve_din(batch: int, *, reduced: bool = False, device="cuda",
+              seed: int = 0, iters: int = 20) -> dict:
+    """Score ``batch`` DIN requests ``iters`` times (``--mode model --arch
+    din``, the counterpart of the reference's ``serve_din``): the
+    published config, or the reduced one, with random weights on
+    ``device``; the batch drawn from ``default_rng(seed)`` as the train
+    launcher draws DIN's.  One untimed call, then ``iters`` timed calls,
+    each ended by a device synchronise on the card.  Prints and returns
+    ms a batch and scores a second, with the last call's logits."""
+    from ..models.recsys.din import din_forward, din_param_defs
+    from .train import synth_batch
+
+    dev = resolve_device(device)
+    cfg = reduced_config("din") if reduced else get_arch("din")[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(din_param_defs(cfg), gen, dev)
+    b = synth_batch("din", cfg, np.random.default_rng(seed), batch, 0, dev)
+    del b["labels"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with torch.no_grad():
+        scores = din_forward(params, b, cfg)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            scores = din_forward(params, b, cfg)
+            sync()
+    dt = (time.perf_counter() - t0) / iters
+    print(f"din batch={batch}: {dt * 1000:.3f} ms/batch "
+          f"({batch / dt:.0f} scores/s)")
+    return {"ms_per_batch": dt * 1000, "scores_per_s": batch / dt,
+            "scores": scores, "config": cfg}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=("model", "snapshots", "evolve",
@@ -710,6 +749,12 @@ def main() -> None:
     elif args.mode == "evolve":
         serve_evolve(args.events, args.intervals, args.points, args.op,
                      seed=args.seed, device=args.device)
+    elif family_of(args.arch) == "recsys":
+        serve_din(args.batch, reduced=args.reduced, device=args.device,
+                  seed=args.seed)
+    elif family_of(args.arch) == "gnn":
+        ap.error(f"--arch {args.arch}: the GNN family trains "
+                 f"(repro_torch.launch.train); it has no serving mode")
     else:
         serve_lm(args.arch, args.batch, args.prompt, args.gen,
                  reduced=args.reduced, device=args.device, seed=args.seed)

@@ -1,27 +1,30 @@
-"""Training launcher for the LM family, in torch: the port of
-``repro/launch/train.py``.
+"""Training launcher, in torch: the port of ``repro/launch/train.py``,
+for every architecture of ``configs/registry.py::ARCH_IDS`` (the LMs, the
+four GNNs and DIN).
 
     python -m repro_torch.launch.train --arch gemma3-1b --steps 8 \\
         --batch 8 --seq 2048 --full-config          # on the card
     python -m repro_torch.launch.train --arch gemma3-1b --device cpu
+    python -m repro_torch.launch.train --arch dimenet --device cpu
 
 ``--arch <id>`` runs a real train loop: the reduced config by default, the
 published one with ``--full-config``; seeded random weights
 (``torch.Generator`` seed 0); the architecture's optimizer under a
 ``warmup_cosine`` schedule (20 warm-up steps over ``--steps``); synthetic
-token batches from numpy's ``default_rng(0)``, as the reference draws
-them; checkpoint and resume through :mod:`repro_torch.storage.checkpoint`
-on a :class:`~repro_torch.storage.kv.LogFileKV` (``--ckpt-dir``, every
+batches from numpy's ``default_rng(0)``, drawn as the reference draws
+them (token ids; DIN's behaviour sequences; a random graph of 256 nodes
+and 1,024 edge slots for a GNN, whatever ``--batch`` and ``--seq`` say);
+checkpoint and resume through :mod:`repro_torch.storage.checkpoint` on a
+:class:`~repro_torch.storage.kv.LogFileKV` (``--ckpt-dir``, every
 ``--ckpt-every`` steps); ``--grad-compression bf16|int8``;
-``--accum-steps`` micro-batches a step.  ``--device`` defaults to the
+``--accum-steps`` micro-batches a step (LM and DIN batches only: a
+GNN batch is one graph).  ``--device`` defaults to the
 card, which must be present; ``--device cpu`` trains on the host.
 
 One difference from the reference: on resume the data stream skips the
 batches the checkpoint's steps consumed (its ``data_cursor``), so a
 resumed run trains on what an uninterrupted run would have, and reaches
 the same parameters.  The reference restarts the stream at its first batch.
-The GNN and recsys families are not ported yet (``ROADMAP.md`` §1 item
-6.4): their architectures raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,41 +46,75 @@ from ..training.trainer import make_train_step
 from ..tree_util import leaves
 
 
-# the reference's GNN and recsys architectures, which the port does not
-# know yet (repro/configs/gnn_archs.py)
-LATER_FAMILIES = {"gcn-cora": "gnn", "gin-tu": "gnn", "meshgraphnet": "gnn",
-                  "dimenet": "gnn", "din": "recsys"}
-
-
-def _lm_only(arch: str) -> None:
-    if arch in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"{arch}: training the {LATER_FAMILIES[arch]} family is not "
-            f"ported yet (ROADMAP.md §1 item 6.4, GNN and DIN)")
-    family_of(arch)
-
-
-def synth_tokens(cfg, rng: np.random.Generator, batch: int, seq: int
-                 ) -> np.ndarray:
-    """The reference's LM batch draw: ``rng.integers(0, vocab, (batch,
-    seq))``."""
-    return rng.integers(0, cfg.vocab, (batch, seq))
+def synth_arrays(arch: str, cfg, rng: np.random.Generator, batch: int,
+                 seq: int) -> dict:
+    """The reference's batch draw (``repro/launch/train.py::synth_batch``)
+    as numpy arrays: the same draws from ``rng``, in the same order."""
+    fam = family_of(arch)
+    if fam == "lm":
+        return {"tokens": rng.integers(0, cfg.vocab, (batch, seq)).astype(
+            np.int32)}
+    if fam == "recsys":
+        S = cfg.seq_len
+        return {"hist_goods": rng.integers(0, cfg.n_goods, (batch, S)).astype(
+                    np.int32),
+                "hist_cates": rng.integers(0, cfg.n_cates, (batch, S)).astype(
+                    np.int32),
+                "hist_mask": rng.random((batch, S)) < 0.8,
+                "target_goods": rng.integers(0, cfg.n_goods, batch).astype(
+                    np.int32),
+                "target_cates": rng.integers(0, cfg.n_cates, batch).astype(
+                    np.int32),
+                "labels": rng.integers(0, 2, batch).astype(np.int32)}
+    # gnn: random graph batch
+    N, E = 256, 1024
+    src = rng.integers(0, N, E // 2).astype(np.int32)
+    dst = rng.integers(0, N, E // 2).astype(np.int32)
+    ei = np.stack([np.concatenate([src, dst]), np.concatenate([dst, src])])
+    b = {"edge_index": ei}
+    if cfg.kind in ("gcn", "gin"):
+        b.update(x=rng.standard_normal((N, cfg.d_in)).astype(np.float32),
+                 labels=rng.integers(0, cfg.n_classes, N).astype(np.int32),
+                 label_mask=np.ones(N, np.float32))
+    elif cfg.kind == "meshgraphnet":
+        b.update(x=rng.standard_normal((N, cfg.d_node_in)).astype(np.float32),
+                 edge_attr=rng.standard_normal((E, cfg.d_edge_in)).astype(
+                     np.float32),
+                 target=rng.standard_normal((N, cfg.d_out)).astype(
+                     np.float32))
+    else:
+        T = 4 * E
+        b.update(z=rng.integers(1, 10, N).astype(np.int32),
+                 pos=rng.standard_normal((N, 3)).astype(np.float32),
+                 triplet_kj=rng.integers(0, E, T).astype(np.int32),
+                 triplet_ji=rng.integers(0, E, T).astype(np.int32),
+                 graph_ids=np.zeros(N, np.int32),
+                 target=rng.standard_normal((1, cfg.d_out)).astype(
+                     np.float32))
+    return b
 
 
 def synth_batch(arch: str, cfg, rng: np.random.Generator, batch: int,
                 seq: int, device="cuda") -> dict:
-    """``{"tokens": int32 [batch, seq]}`` on ``device`` for an LM arch."""
-    _lm_only(arch)
-    return {"tokens": torch.from_numpy(
-        synth_tokens(cfg, rng, batch, seq).astype(np.int32)).to(
-            resolve_device(device))}
+    """:func:`synth_arrays` as tensors on ``device`` (Python ints stay
+    ints)."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+            else v for k, v in synth_arrays(arch, cfg, rng, batch,
+                                            seq).items()}
 
 
 def make_loss(arch: str, cfg):
-    """``(loss_fn(params, batch), param_defs)`` of an LM arch."""
-    _lm_only(arch)
-    from ..models.transformer import model as tm
-    return (lambda p, b: tm.loss_fn(p, b, cfg)), tm.param_defs(cfg)
+    """``(loss_fn(params, batch), param_defs)`` of an architecture."""
+    fam = family_of(arch)
+    if fam == "lm":
+        from ..models.transformer import model as tm
+        return (lambda p, b: tm.loss_fn(p, b, cfg)), tm.param_defs(cfg)
+    if fam == "recsys":
+        from ..models.recsys.din import din_loss, din_param_defs
+        return (lambda p, b: din_loss(p, b, cfg)), din_param_defs(cfg)
+    from ..models.gnn import gnn_loss, gnn_param_defs
+    return (lambda p, b: gnn_loss(p, b, cfg)), gnn_param_defs(cfg)
 
 
 def train(arch: str, *, steps: int = 200, batch: int = 4, seq: int = 64,
@@ -92,7 +129,6 @@ def train(arch: str, *, steps: int = 200, batch: int = 4, seq: int = 64,
     "start", "losses", "step_s", "ckpt_s"}``: the final trees, the step it
     resumed at, each step's loss and wall seconds (ended by a device
     synchronise), and the seconds of the restore and of each save."""
-    _lm_only(arch)
     dev = resolve_device(device)
     cfg, opt_name = get_arch(arch)
     if not full_config:
@@ -126,7 +162,7 @@ def train(arch: str, *, steps: int = 200, batch: int = 4, seq: int = 64,
     rng = np.random.default_rng(0)
     if data is None:
         for _ in range(start):          # the batches steps < start consumed
-            synth_tokens(cfg, rng, batch, seq)
+            synth_arrays(arch, cfg, rng, batch, seq)
 
         def data(step):
             return synth_batch(arch, cfg, rng, batch, seq, dev)

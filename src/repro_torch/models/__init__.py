@@ -1,1 +1,2 @@
-"""Models of the port: the dense GQA language model (``transformer``)."""
+"""Models of the port: the language models (``transformer``), the four GNN
+architectures (``gnn``) and DIN (``recsys``)."""

@@ -142,6 +142,15 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     return torch.tanh(x / cap) * cap
 
 
+def seg_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: rows of ``data`` added into ``n`` segments
+    by ``index_add`` into zeros, in ``data``'s dtype (on the card with
+    float atomics, so in no fixed order)."""
+    out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add(0, ids, data)
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean negative log-likelihood of ``targets`` under ``logits [..., V]``

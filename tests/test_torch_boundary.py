@@ -1,13 +1,15 @@
 """The port's package boundary and its device default.
 
-* Every ``repro_torch`` module, and ``chip_smoke.py``, imports in a fresh
-  interpreter whose import system refuses ``jax`` and ``repro`` (exactly,
-  or as a dotted prefix — ``repro_torch`` itself stays importable).
+* Every ``repro_torch`` module, ``chip_smoke.py`` and
+  ``examples/pt_temporal_gnn_train.py`` import in a fresh interpreter
+  whose import system refuses ``jax`` and ``repro`` (exactly, or as a
+  dotted prefix — ``repro_torch`` itself stays importable).
 * Entry points called without ``device=`` run on the card; without one
   they raise instead of running on the CPU: retrieval (the rank-local
   sharded entry too, in a one-rank ``gloo`` group), LM serving, the model
   builders, and training (``launch/train``, its batches, the optimizer
-  state carried from the reference).
+  state carried from the reference); GNN and DIN training and DIN
+  serving.
 """
 import dataclasses
 import os
@@ -35,7 +37,7 @@ from repro_torch.storage.kv import MemKV
 ROOT = Path(__file__).resolve().parent.parent
 
 _BLOCKED_IMPORT = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, importlib.util, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -54,6 +56,10 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
+spec = importlib.util.spec_from_file_location(
+    "pt_temporal_gnn_train",
+    sys.argv[1] + "/examples/pt_temporal_gnn_train.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 assert not loaded, loaded
@@ -68,11 +74,18 @@ _TRAINING_MODULES = ("repro_torch.tree_util", "repro_torch.training.optim",
                      "repro_torch.storage.checkpoint",
                      "repro_torch.launch.train")
 
+# the GNN and DIN slice's modules
+_GNN_DIN_MODULES = ("repro_torch.configs.shapes",
+                    "repro_torch.configs.gnn_archs",
+                    "repro_torch.models.gnn.models",
+                    "repro_torch.models.recsys.din",
+                    "repro_torch.models.recsys.embedding")
+
 
 def test_port_imports_without_jax_or_repro():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT),
-                          ",".join(_TRAINING_MODULES)],
+                          ",".join(_TRAINING_MODULES + _GNN_DIN_MODULES)],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 25     # every module was walked
@@ -213,3 +226,22 @@ def test_training_defaults_to_the_card(no_card):
     carried = opt_state_from_reference(state, device="cpu")
     assert carried["step"].shape == () and carried["step"].dtype == \
         torch.int32
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "din"])
+def test_gnn_and_din_entry_points_default_to_the_card(no_card, arch):
+    from repro_torch.launch import train
+
+    cfg = reduced_config(arch)
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train(arch, steps=1, log=lambda *_: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.synth_batch(arch, cfg, rng, 2, 8)
+    if arch == "din":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.serve_din(4, reduced=True)
+        out = serve.serve_din(4, reduced=True, device="cpu", iters=1)
+        assert out["scores"].shape == (4,)
+    out = train.train(arch, steps=1, device="cpu", log=lambda *_: None)
+    assert np.isfinite(out["losses"][0])

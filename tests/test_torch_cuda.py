@@ -22,7 +22,11 @@ it, and a reduced LM on the card; for the temporal engine,
 ``evolve_intervals_torch`` (monolithic and streamed), the batch loader
 and both fixpoint solvers on the card against the port's own CPU runs;
 for sharded retrieval, the word-cyclic ``[P, K, Wp]`` stacks through the
-chain kernel (two launches a timepoint) against the CPU path.
+chain kernel (two launches a timepoint) against the CPU path; for GNN and
+DIN, the four reduced GNNs (two with gather chunks) and reduced DIN on the
+card against the CPU (gradients within 1e-4 of each leaf's largest
+magnitude: aggregation on the card adds with float atomics) and the
+chunked gather and segment sum at 1, 3, 4 and 32 chunks.
 This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1106,3 +1110,120 @@ def test_cuda_train_step_matches_cpu(cuda_device):
     for p, w in d_cpu.items():
         assert float((d_dev[p] - w).abs().max()) <= \
             1e-4 * float(w.abs().max()), p
+
+
+# ---------------------------------------------------------------------------
+# GNN and DIN: reduced models on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _card_against_cpu(arch: str, dev, **over):
+    """``(loss, grads)`` of ``arch``'s reduced config (``over`` replaced)
+    on the launcher's seed-0 batch, on the CPU and on ``dev``, from the
+    same seeded weights."""
+    import dataclasses
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch.train import make_loss, synth_batch
+    from repro_torch.models.common import init_params
+    from repro_torch.training.trainer import value_and_grad
+    from repro_torch.tree_util import tree_map
+
+    cfg = dataclasses.replace(reduced_config(arch), **over)
+    loss_fn, defs = make_loss(arch, cfg)
+    cpu = init_params(defs, torch.Generator().manual_seed(0), "cpu")
+    batch = synth_batch(arch, cfg, np.random.default_rng(0), 16, 8, "cpu")
+    out = {}
+    for d in ("cpu", dev):
+        params = tree_map(lambda t: t.to(d), cpu)
+        b = {k: v.to(d) if isinstance(v, torch.Tensor) else v
+             for k, v in batch.items()}
+        (loss, _), grads = value_and_grad(loss_fn, params, b)
+        out[str(d)] = (float(loss), grads)
+    return out["cpu"], out[str(dev)]
+
+
+def _assert_grads_close(g_cpu, g_dev, tol=1e-4, zero=()):
+    """Every leaf within ``tol`` of its largest CPU magnitude; leaves whose
+    exact gradient is 0 (``zero``) within ``tol`` of the tree's largest."""
+    from repro_torch.tree_util import flatten_with_paths, path_name
+
+    want = {path_name(p): x for p, x in flatten_with_paths(g_cpu)}
+    got = {path_name(p): x.cpu() for p, x in flatten_with_paths(g_dev)}
+    assert got.keys() == want.keys()
+    top = max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        scale = top if name in zero else float(w.abs().max())
+        assert float((got[name] - w).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [
+    ("gcn-cora", {}), ("gin-tu", {}), ("meshgraphnet", {}), ("dimenet", {}),
+    ("meshgraphnet", {"gather_chunks": 3}), ("dimenet", {"gather_chunks": 4})])
+def test_cuda_gnn_matches_cpu(cuda_device, arch, over):
+    """Reduced GNNs in f32: the loss within 1e-5 relative and the
+    gradients within 1e-4 of each leaf's largest magnitude (aggregation
+    on the card adds with float atomics, in another order)."""
+    (l_cpu, g_cpu), (l_dev, g_dev) = _card_against_cpu(arch, cuda_device,
+                                                       **over)
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    _assert_grads_close(g_cpu, g_dev)
+
+
+@pytest.mark.cuda
+def test_cuda_din_matches_cpu(cuda_device):
+    """Reduced DIN: the loss within 1e-5 relative, the gradients within
+    1e-4 (``attn_b2``'s exact gradient is 0: against the tree's largest);
+    ``din_retrieval`` within 1e-5 relative."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.recsys import din
+    from repro_torch.tree_util import tree_map
+
+    (l_cpu, g_cpu), (l_dev, g_dev) = _card_against_cpu("din", cuda_device)
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    _assert_grads_close(g_cpu, g_dev, zero=("attn_b2",))
+    cfg = reduced_config("din")
+    cpu = init_params(din.din_param_defs(cfg),
+                      torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    b = {"hist_goods": rng.integers(0, cfg.n_goods, (2, cfg.seq_len)),
+         "hist_cates": rng.integers(0, cfg.n_cates, (2, cfg.seq_len)),
+         "hist_mask": rng.random((2, cfg.seq_len)) < 0.8,
+         "cand_goods": rng.integers(0, cfg.n_goods, (2, 5000)),
+         "cand_cates": rng.integers(0, cfg.n_cates, (2, 5000))}
+    b = {k: torch.from_numpy(v) for k, v in b.items()}
+    with torch.no_grad():
+        want = din.din_retrieval(cpu, b, cfg)
+        got = din.din_retrieval(tree_map(lambda t: t.to(cuda_device), cpu),
+                                {k: v.to(cuda_device) for k, v in b.items()},
+                                cfg).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunks", [1, 3, 4, 32])
+def test_cuda_chunked_functions_match_cpu(cuda_device, n_chunks):
+    """``chunked_gather`` exactly (a gather) and ``chunked_segment_sum``
+    within 1e-5, forward and gradient, on the card against the CPU."""
+    from repro_torch.models.gnn import models as gm
+
+    gen = torch.Generator().manual_seed(0)
+    N, M, D = 1000, 5003, 16
+    x = torch.randn(N, D, generator=gen)
+    idx = torch.randint(0, N, (M,), generator=gen, dtype=torch.int32)
+    gout = torch.randn(M, D, generator=gen)
+    gsum = torch.randn(N, D, generator=gen)
+    res = {}
+    for d in ("cpu", cuda_device):
+        xs = x.to(d).requires_grad_(True)
+        g = gm.chunked_gather(xs, idx.to(d), n_chunks)
+        (dx,) = torch.autograd.grad(g, xs, gout.to(d))
+        ds = gout.to(d).requires_grad_(True)
+        s = gm.chunked_segment_sum(ds, idx.to(d), N, n_chunks)
+        (dd,) = torch.autograd.grad(s, ds, gsum.to(d))
+        res[str(d)] = [t.detach().cpu() for t in (g, dx, s, dd)]
+    cpu, dev = res["cpu"], res[str(cuda_device)]
+    assert torch.equal(dev[0], cpu[0]) and torch.equal(dev[3], cpu[3])
+    for a, b in ((dev[1], cpu[1]), (dev[2], cpu[2])):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

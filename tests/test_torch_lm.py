@@ -149,10 +149,11 @@ def test_params_from_reference_checks_the_tree():
         params_from_reference(bad, cfg, device="cpu")
 
 
-def test_configs_and_unported_archs():
+def test_configs_and_families():
     """The copied configs equal the reference's field by field, and so
     do the parameter trees (key for key, shape for shape, the dtype's
-    name) at full width and reduced; GNN/DIN names are unknown."""
+    name) at full width and reduced; the GNN and DIN names belong to
+    their families, and an unknown name raises ``KeyError``."""
     from repro.configs.registry import get_arch as j_get_arch
     for arch in ("yi-34b", "stablelm-12b", "gemma3-1b", "deepseek-v3-671b",
                  "arctic-480b"):
@@ -192,8 +193,9 @@ def test_configs_and_unported_archs():
             got, want = (flat(tm.param_defs(make(arch))),
                          flat(jtm.param_defs(jmake(arch))))
             assert got == want, arch
+    assert family_of("din") == "recsys" and family_of("dimenet") == "gnn"
     with pytest.raises(KeyError):
-        family_of("din")
+        family_of("no-such-arch")
 
 
 def test_init_params_draws_large_leaves_in_runs(monkeypatch):

@@ -341,3 +341,117 @@ def test_value_and_grad_leaves_params_untouched():
     assert int(state["step"]) == 0 and int(new_state["step"]) == 1
     assert all(not t.requires_grad for t in leaves(new))
     assert not np.array_equal(_flat(new)["embed"], before["embed"])
+
+
+# ---------------------------------------------------------------------------
+# the GNN and recsys families of the launcher and the registry
+# ---------------------------------------------------------------------------
+
+OTHER_ARCHS = ("gcn-cora", "gin-tu", "meshgraphnet", "dimenet", "din")
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_synth_batch_matches_reference(arch):
+    """The same draws from one seed, in the same order: equal arrays, the
+    reference's dtypes, and the generator left in the same state."""
+    from repro.launch.train import synth_batch as j_synth_batch
+    from repro_torch.launch.train import synth_batch
+
+    jcfg, cfg = j_reduced_config(arch), reduced_config(arch)
+    jrng, rng = np.random.default_rng(0), np.random.default_rng(0)
+    for _ in range(2):
+        want = j_synth_batch(arch, jcfg, jrng, 4, 8)
+        got = synth_batch(arch, cfg, rng, 4, 8, device="cpu")
+        assert got.keys() == want.keys()
+        for key, w in want.items():
+            w = np.asarray(w)
+            g = got[key].numpy()
+            assert g.dtype == w.dtype and np.array_equal(g, w), key
+    assert rng.integers(0, 2 ** 31) == jrng.integers(0, 2 ** 31)
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_train_five_steps_match_reference_loop(arch, monkeypatch):
+    """``train(arch, device="cpu")`` against the reference launcher's loop
+    (``repro/launch/train.py::main``: reduced config, AdamW under
+    ``warmup_cosine(lr, 20, steps)``, a fresh ``synth_batch`` a step from
+    ``default_rng(0)``), from the reference's initial weights: each step's
+    loss within 1e-5 relative."""
+    from repro.configs.registry import get_arch as j_get_arch
+    from repro.launch.train import make_loss as j_make_loss
+    from repro.launch.train import synth_batch as j_synth_batch
+    from repro_torch.launch import train as tr
+
+    steps, lr = 5, 1e-2
+    jcfg, cfg = j_reduced_config(arch), reduced_config(arch)
+    loss_fn, defs = j_make_loss(arch, jcfg)
+    jparams = jmc.init_params(defs, jax.random.PRNGKey(0))
+    carried = params_from_reference(jax.tree.map(np.asarray, jparams), cfg,
+                                    device="cpu")
+    opt = joptim.OPTIMIZERS[j_get_arch(arch)[1]](
+        lr=lr, schedule=joptim.warmup_cosine(lr, 20, steps))
+    state = opt[0](jparams)
+    step_fn = jax.jit(jtrainer.make_train_step(loss_fn, opt))
+    rng = np.random.default_rng(0)
+    want = []
+    for _ in range(steps):
+        jparams, state, m = step_fn(jparams, state,
+                                    j_synth_batch(arch, jcfg, rng, 4, 8))
+        want.append(float(m["loss"]))
+
+    monkeypatch.setattr(tr.mc, "init_params", lambda *a, **k: carried)
+    got = tr.train(arch, steps=steps, batch=4, seq=8, lr=lr, device="cpu",
+                   log=lambda *_: None)["losses"]
+    assert len(got) == steps
+    assert want[-1] != want[0]
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-5 * abs(w), (got, want)
+
+
+def test_registry_lookups_match_reference():
+    """``ARCH_IDS`` in the reference's order; ``family_of``,
+    ``shapes_for``, ``get_arch`` and ``reduced_config`` equal to the
+    reference's for every entry (configs field by field, dtypes by
+    name, the GNN configs' mesh specs and ``gather_chunks`` too; the LM
+    config's ``act_spec`` is not ported); the shape tables equal."""
+    import repro.configs.registry as jreg
+    import repro.configs.shapes as jshapes
+    import repro_torch.configs.registry as reg
+    import repro_torch.configs.shapes as shapes
+
+    def fields(cfg) -> dict:
+        out = {}
+        for f in dataclasses.fields(cfg):
+            v = getattr(cfg, f.name)
+            if dataclasses.is_dataclass(v):
+                v = fields(v)
+            elif isinstance(v, torch.dtype):
+                v = str(v).removeprefix("torch.")
+            elif f.name in ("dtype", "act_dtype"):
+                v = np.dtype(v).name
+            out[f.name] = v
+        return {"class": type(cfg).__name__, **out}
+
+    assert reg.ARCH_IDS == jreg.ARCH_IDS
+    for arch in jreg.ARCH_IDS:
+        assert reg.family_of(arch) == jreg.family_of(arch)
+        assert reg.shapes_for(arch) == jreg.shapes_for(arch)
+        (cfg, opt), (jcfg, jopt) = reg.get_arch(arch), jreg.get_arch(arch)
+        assert opt == jopt
+        for a, b in ((cfg, jcfg), (reg.reduced_config(arch),
+                                   jreg.reduced_config(arch))):
+            a, b = fields(a), fields(b)
+            # the LM config's mesh spec has no counterpart on one card
+            extra = {"act_spec"} if reg.family_of(arch) == "lm" else set()
+            assert b.keys() - a.keys() == extra, arch
+            assert a == {k: v for k, v in b.items() if k not in extra}, arch
+    for name in ("GNN_SHAPES", "RECSYS_SHAPES", "LM_SHAPES"):
+        a, b = getattr(shapes, name), getattr(jshapes, name)
+        assert {k: dataclasses.asdict(v) for k, v in a.items()} == \
+            {k: dataclasses.asdict(v) for k, v in b.items()}
+    assert shapes.GNN_SHAPES["molecule"].padded() == (512, 512)
+    assert reg.get_arch("din")[0].d_item == 36
+    for bad in (reg.family_of, reg.get_arch, reg.reduced_config,
+                reg.shapes_for):
+        with pytest.raises(KeyError):
+            bad("no-such-arch")
