@@ -205,6 +205,35 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    card; deterministic algorithms are not turned on).  Each part prints
    its wall seconds, ms a step and peak GiB; the three retrieval kernels'
    records gain the launches of (a) (``temporal_gcn_launches``).
+11. the dry run (``repro_torch.launch.dryrun``), which needs no card:
+   (a) the whole sweep, 40 cells on both production meshes, traced on
+   the ``meta`` device: 74 records ok, 6 skipped (``long_500k`` of yi-34b,
+   stablelm-12b and arctic-480b), none in error; a line a record and the
+   sweep's seconds.  (b) The eight cells phase 10 runs at their
+   registered shapes (gcn-cora × ``full_graph_sm``, gin-tu ×
+   ``molecule``, meshgraphnet and dimenet × ``minibatch_lg``, DIN ×
+   ``train_batch``, ``serve_p99``, ``serve_bulk``, ``retrieval_cand``):
+   each cell's step traced on ``meta`` (its peak live bytes, arguments
+   included, and its one-card roofline on the H100's data-sheet peaks),
+   then run on the card on seeded arguments of the same shapes: a warm-up
+   step, then ``DRYRUN_STEPS`` timed steps, the first after
+   ``reset_peak_memory_stats``; the predicted peak held within
+   ``PEAK_BAND`` (0.8–1.25) of ``max_memory_allocated()`` less what was
+   allocated before the arguments and what the warm-up left behind (a
+   workspace a library makes at its first use: at most cuBLAS's, or the
+   phase fails), the step's loss or
+   scores finite, nothing left allocated after the steps; the roofline's
+   time printed beside the measured ms, with the top ops by bytes, and
+   one more step under ``torch.profiler`` (device ms: products, the rest,
+   the top kernels).  (c)
+   Meta traces of gemma3-1b's ``prefill_step`` (B 8 × 4,096) and one
+   ``decode_step``, and of deepseek-v3's at phase 8's 3 layers, count the
+   kernel routes and calls that phases 7 and 8 launched on the card: 26
+   ``flash_prefill`` and 26 ``flash_decode``; 3 ``flash_prefill`` and 3
+   ``flash_mla``; the decode counts times the runs' 32 steps equal the
+   card's totals exactly (their predicted peaks printed, not held: the
+   kernels' workspaces exist on the card only).  The phase's record is printed on
+   its own line before the kernels' record.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -312,6 +341,23 @@ GNN_CELLS = (("gcn-cora", "full_graph_sm"), ("gin-tu", "molecule"),
              ("meshgraphnet", "minibatch_lg"), ("dimenet", "minibatch_lg"))
 GNN_STEPS, GNN_LR, MGN_CHUNKS = 4, 3e-4, 32
 DIN_STEPS, DIN_LR = 4, 1e-2
+
+# the dry run (phase 11): the whole sweep on the meta device (74 records
+# ok, 6 skipped: long_500k of the three pure-GQA archs); the cells phase 10
+# runs at their registered shapes, predicted on meta and run on the card,
+# the predicted peak held within PEAK_BAND of the measured one, each step
+# timed DRYRUN_STEPS times after a warm-up
+DRYRUN_SWEEP = {"ok": 74, "skipped": 6, "error": 0}
+DRYRUN_CARD_CELLS = (("gcn-cora", "full_graph_sm"), ("gin-tu", "molecule"),
+                     ("meshgraphnet", "minibatch_lg"),
+                     ("dimenet", "minibatch_lg"), ("din", "train_batch"),
+                     ("din", "serve_p99"), ("din", "serve_bulk"),
+                     ("din", "retrieval_cand"))
+PEAK_BAND = (0.8, 1.25)
+# PyTorch's default cuBLAS workspace on sm_90 (CUBLAS_WORKSPACE_CONFIG
+# ":4096:8", 8 chunks of 4096 KiB): what a first product may leave held
+CUBLAS_WORKSPACE_BYTES = 8 * 4096 * 1024
+DRYRUN_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -1934,8 +1980,9 @@ def rank_phase(src: Path) -> dict:
 
 def profiled_ms(fn) -> dict:
     """``fn()`` once under ``torch.profiler``: the host-clock wall ms (ended
-    by a synchronise), the device's busy ms, and device ms by kind of
-    kernel (the attention kernels, matrix products, the rest)."""
+    by a synchronise), the device's busy ms, device ms by kind of kernel
+    (the attention kernels, matrix products, the rest) and the eight
+    kernels that took the most device ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1956,12 +2003,16 @@ def profiled_ms(fn) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     out = {"wall_ms": wall, "device_busy_ms": 0.0, "attention_kernels": 0.0,
            "matrix_products": 0.0, "other": 0.0}
+    top = []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             ms = e.self_device_time_total / 1e3
             out["device_busy_ms"] += ms
             out[kind(e.key)] += ms
+            top.append((ms, e.count, e.key[:90]))
     out["device_busy_share"] = out["device_busy_ms"] / wall
+    out["top_kernels"] = [{"kernel": k, "calls": n, "ms": ms}
+                          for ms, n, k in sorted(top, reverse=True)[:8]]
     return out
 
 
@@ -2828,6 +2879,213 @@ def gnn_din_phase(gm, ev, dev, root: Path) -> dict:
     print(f"gnn/din: phase {out['phase_s']:.3f} s")
     return out
 
+def card_cell_args(cell, dev, seed: int = SEED) -> tuple:
+    """The arguments of a GNN or DIN cell (``configs/registry.py``) on the
+    card, at the shapes of its ``meta`` arguments: seeded parameters
+    (``init_params``), the optimizer's fresh state over them (as the
+    cell's), and a batch drawn key by key in each key's range (indices
+    below the node, edge, graph, class or table counts; masks of ones;
+    features normal)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.models.common import init_params
+    from repro_torch.models.gnn import gnn_param_defs
+    from repro_torch.models.recsys.din import din_param_defs
+    from repro_torch.training.optim import OPTIMIZERS
+
+    cfg, gen = cell.cfg, torch.Generator(device=dev).manual_seed(seed)
+    din = cfg.kind == "din"
+    params = init_params(din_param_defs(cfg) if din else gnn_param_defs(cfg),
+                         gen, dev)
+    batch = cell.args[-1]
+    if din:
+        highs = {"goods": cfg.n_goods, "cates": cfg.n_cates, "labels": 2}
+    else:
+        nodes = batch["node_mask"].shape[0]
+        highs = {"edge_index": nodes, "labels": getattr(cfg, "n_classes", 1),
+                 "triplet_kj": batch["edge_index"].shape[1],
+                 "triplet_ji": batch["edge_index"].shape[1]}
+
+    def draw(key, m):
+        if m.dtype == torch.bool:
+            return torch.rand(m.shape, generator=gen, device=dev) < 0.8
+        if m.is_floating_point():
+            if key.endswith("mask"):
+                return torch.ones(m.shape, dtype=m.dtype, device=dev)
+            return torch.randn(m.shape, generator=gen, device=dev).to(m.dtype)
+        if key == "graph_ids":      # sorted, as a batch of graphs lies
+            G = GNN_SHAPES[cell.shape].n_graphs
+            n = m.shape[0]
+            return (torch.arange(n, device=dev) * G // n).to(m.dtype)
+        if key == "z":
+            lo, hi = 1, 10
+        else:
+            lo, hi = 0, highs[key.rsplit("_", 1)[-1] if din else key]
+        return torch.randint(lo, hi, m.shape, generator=gen, device=dev,
+                             dtype=m.dtype)
+
+    batch = {k: draw(k, m) for k, m in batch.items()}
+    if cell.step_kind != "train":
+        return params, batch
+    return params, OPTIMIZERS[get_arch(cell.arch)[1]]()[0](params), batch
+
+
+def meta_launches(cfg, batch: int, prompt: int, gen: int) -> dict:
+    """Calls per kernel route of one ``prefill_step`` over ``prompt``
+    tokens and one ``decode_step`` at ``cache_len = prompt`` on a cache of
+    ``prompt + gen``, traced on the ``meta`` device; and each step's
+    predicted peak bytes."""
+    import torch
+
+    from repro_torch.configs.registry import abstract_cache
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.models import common as mc
+    from repro_torch.models.transformer import model as tm
+
+    params = mc.abstract_params(tm.param_defs(cfg))
+    prefill = analyze(lambda p, t: tm.prefill_step(p, t, cfg), params,
+                      torch.empty((batch, prompt), dtype=torch.int32,
+                                  device="meta"))
+    decode = analyze(lambda p, c, t: tm.decode_step(p, c, t, prompt, cfg),
+                     params, abstract_cache(cfg, batch, prompt + gen),
+                     torch.empty((batch, 1), dtype=torch.int32,
+                                 device="meta"))
+    return {step: {k: v["launches"] for k, v in a.kernels.items()}
+            for step, a in (("prefill", prefill), ("decode", decode))}, {
+        "prefill_peak_bytes": prefill.peak_bytes,
+        "decode_peak_bytes": decode.peak_bytes}
+
+
+def dryrun_phase(dev, card: dict) -> dict:
+    """Phase 11, the dry run: (a) the whole sweep on ``meta``; (b) the
+    :data:`DRYRUN_CARD_CELLS` predicted on ``meta`` and run on the card,
+    the predicted peak within :data:`PEAK_BAND` of the measured one, the
+    roofline's time beside the measured ms; (c) the kernel routes and
+    calls a meta trace of gemma3-1b's and deepseek-v3's (cut to
+    :data:`DS_LAYERS`) prefill and decode steps counts, for one prefill
+    and :data:`LM_GEN` / :data:`DS_GEN` decode steps, held exactly against
+    ``card``, the launches of phases 7 and 8's main-path runs."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch, get_cell, list_cells
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    results = dryrun.sweep(list_cells(), [False, True], {},
+                           log=lambda line: print(f"dryrun: {line}"))
+    sweep_s = time.perf_counter() - t0
+    counts = {k: sum(r["status"] == k for r in results.values())
+              for k in DRYRUN_SWEEP}
+    print(f"dryrun: (a) the sweep, {len(results)} records on the meta "
+          f"device: {counts} in {sweep_s:.3f} s")
+    check(counts == DRYRUN_SWEEP, f"dry run sweep: {counts}, not "
+          f"{DRYRUN_SWEEP}: " + "; ".join(
+              r["error"] for r in results.values() if r["status"] == "error"))
+
+    one = make_mesh((1, 1), ("data", "model"))
+    cells = {}
+    for arch, shape in DRYRUN_CARD_CELLS:
+        cell = get_cell(arch, shape, one)
+        counted, trace_s = dryrun.trace_cell(cell)
+        roof = dryrun.roofline(counted, 1, cell.flops_model)
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        args = card_cell_args(cell, dev)
+        arg_bytes = torch.cuda.memory_allocated(dev) - m0
+        out = cell.fn(*args)                      # warm-up
+        del out
+        torch.cuda.synchronize()
+        # what the warm-up left allocated: a library's workspace made at
+        # its first use in the process (cuBLAS's), not the step's; more
+        # than that workspace is a leak of the first call
+        kept = torch.cuda.memory_allocated(dev) - m0 - arg_bytes
+        check(0 <= kept <= CUBLAS_WORKSPACE_BYTES, f"{arch} x {shape}: the "
+              f"warm-up step left {kept} bytes allocated, more than "
+              f"cuBLAS's workspace of {CUBLAS_WORKSPACE_BYTES}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for _ in range(DRYRUN_STEPS):
+            t0 = time.perf_counter()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if len(ms) == 1:
+                peak = torch.cuda.max_memory_allocated(dev) - m0 - kept
+                # a step's loss, or the scores served
+                check(bool(torch.isfinite(out[2]["loss"] if cell.step_kind
+                                          == "train" else out).all()),
+                      f"{arch} x {shape}: not finite")
+            del out
+        torch.cuda.synchronize()
+        check(torch.cuda.memory_allocated(dev) - m0 - arg_bytes == kept,
+              f"{arch} x {shape}: steps left memory allocated")
+        prof = profiled_ms(lambda: cell.fn(*args))    # device ms by kind
+        del args
+        torch.cuda.empty_cache()
+        ratio = counted["peak_bytes"] / peak
+        bound = max(roof["compute_s"], roof["memory_s"]) * 1e3
+        rec = {"arch": arch, "shape": shape, "step_kind": cell.step_kind,
+               "trace_s": trace_s,
+               "predicted_peak_bytes": counted["peak_bytes"],
+               "predicted_argument_bytes": counted["argument_bytes"],
+               "measured_peak_bytes": peak, "measured_argument_bytes":
+                   arg_bytes, "kept_by_warm_up_bytes": kept,
+               "peak_ratio": ratio,
+               "roofline_ms": bound, "compute_ms": roof["compute_s"] * 1e3,
+               "memory_ms": roof["memory_s"] * 1e3,
+               "bottleneck": roof["bottleneck"], "measured_ms": ms,
+               "measured_median_ms": statistics.median(ms),
+               "counted_flops": counted["flops"],
+               "counted_hbm_bytes": counted["hbm_bytes"],
+               "top_by_bytes": counted["top_by_bytes"][:6],
+               "top_by_flops": counted["top_by_flops"][:3],
+               "profiled_step": prof}
+        cells[f"{arch}|{shape}"] = rec
+        print(f"dryrun: (b) {arch} x {shape}: peak predicted "
+              f"{counted['peak_bytes'] / 2**30:.4f} GiB, measured "
+              f"{peak / 2**30:.4f} GiB (x{ratio:.3f}); roofline "
+              f"{bound:.4f} ms ({roof['bottleneck']}: compute "
+              f"{rec['compute_ms']:.4f}, memory {rec['memory_ms']:.4f}), "
+              f"measured {rec['measured_median_ms']:.4f} ms (profiled: "
+              f"device busy {prof['device_busy_ms']:.4f}, products "
+              f"{prof['matrix_products']:.4f}, other {prof['other']:.4f}); "
+              f"{json.dumps(rec)}")
+        check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1], f"{arch} x {shape}: "
+              f"predicted peak {counted['peak_bytes']} against the card's "
+              f"{peak}: x{ratio:.3f}, outside {PEAK_BAND}")
+
+    gemma, _ = get_arch(LM_ARCH)
+    ds_cfg = dataclasses.replace(get_arch(DS_ARCH)[0], n_layers=DS_LAYERS,
+                                 n_dense_layers=DS_DENSE, mtp=False)
+    traced = {LM_ARCH: meta_launches(gemma, LM_BATCH, LM_PROMPT, LM_GEN),
+              DS_ARCH: meta_launches(ds_cfg, DS_BATCH, DS_PROMPT, DS_GEN)}
+    gens = {LM_ARCH: LM_GEN, DS_ARCH: DS_GEN}
+    meta = {arch: {"prefill": t[0]["prefill"], "decode": {
+                k: n * gens[arch] for k, n in t[0]["decode"].items()}}
+            for arch, t in traced.items()}
+    lm_peaks = {arch: t[1] for arch, t in traced.items()}
+    print(f"dryrun: (c) meta-traced routes and calls, one prefill and "
+          f"{gens} decode steps {json.dumps(meta)}; the card's launches "
+          f"{json.dumps(card)}; predicted peaks (not held) "
+          f"{json.dumps(lm_peaks)}")
+    check(meta == card, f"meta-traced launches {meta} differ from the "
+          f"card's {card}")
+    rec = {"sweep": {"records": len(results), **counts, "seconds": sweep_s,
+                     "trace_s_by_cell": {
+                         k.rsplit("|", 1)[0]: r["trace_s"]
+                         for k, r in results.items()
+                         if r["status"] == "ok" and k.endswith("|single")}},
+           "card_cells": cells, "launches": {"meta": meta, "card": card},
+           "lm_predicted_peak_bytes": lm_peaks,
+           "peak_band": PEAK_BAND, "phase_s": time.perf_counter() - t_phase}
+    print(f"dryrun: phase {rec['phase_s']:.3f} s")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3252,6 +3510,19 @@ def main() -> int:
         if rec["name"] in RETRIEVAL_KERNELS:
             rec["temporal_gcn_launches"] = gnn_din["temporal_gcn"][
                 "launches"][rec["name"]]
+
+    # --------------------------------------------------------------- dry run
+    by_name = {r["name"]: r for r in record}
+    card = {LM_ARCH: {
+                "prefill": {"flash_prefill": by_name[
+                    "flash_attention_prefill"]["launches"]},
+                "decode": {"flash_decode": by_name[
+                    "flash_attention_decode"]["launches"]}},
+            DS_ARCH: {
+                "prefill": {"flash_prefill": mla_rec["serving_deepseek_v3"][
+                    "launches"]["flash_attention_prefill"]},
+                "decode": {"flash_mla": mla_rec["launches"]}}}
+    print(json.dumps({"dryrun": dryrun_phase(dev, card)}))
 
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

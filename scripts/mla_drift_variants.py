@@ -144,8 +144,8 @@ def main() -> int:
         return fn
 
     def tile_plan(Sq, Sk, *, causal, window, q_offset, block_n, **_):
-        lo, hi = fa_ops.visible_range(Sq, Sk, causal=causal, window=window,
-                                      q_offset=q_offset)
+        _, lo, hi = fa_ops.visible_pairs(Sq, Sk, causal=causal,
+                                         window=window, q_offset=q_offset)
         n = max(1, -(-hi // block_n) - lo // block_n)
         if n > fa_ops.MLA_MAX_CLUSTER:
             raise ValueError(f"{n} tiles: more than a cluster holds")

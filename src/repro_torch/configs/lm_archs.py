@@ -4,7 +4,9 @@ package's ``configs/lm_archs.py`` with the port's config classes.
 The optimizer name beside each config is the training choice of the
 reference (adamw for the dense models, adafactor for the two MoEs).  All
 five run in the port; on one card the two MoE models serve at full width
-and a cut depth (``chip_smoke.py``).
+and a cut depth (``chip_smoke.py``).  :data:`LONG_CONTEXT_OK` and
+:data:`TRAIN_ACCUM` are the reference's, for the dry run's cells
+(``configs/registry.py``).
 """
 from __future__ import annotations
 
@@ -57,6 +59,17 @@ LM_ARCHS = {
     "deepseek-v3-671b": (DEEPSEEK_V3_671B, "adafactor"),
     "arctic-480b": (ARCTIC_480B, "adafactor"),
 }
+
+# long_500k applicability (the reference's DESIGN.md §4): needs a
+# sub-quadratic/compressed KV path. gemma3 (5:1 sliding window) and
+# deepseek (MLA latent cache) run; pure full-attention GQA archs skip.
+LONG_CONTEXT_OK = {"gemma3-1b", "deepseek-v3-671b"}
+
+# gradient-accumulation microbatching for train_4k, as the reference sized
+# it (so the big-vocab CE logits and saved activations fit 16 GB a TPU
+# device); the dry run's training cells step with it
+TRAIN_ACCUM = {"gemma3-1b": 4, "deepseek-v3-671b": 8, "arctic-480b": 4,
+               "yi-34b": 2, "stablelm-12b": 2}
 
 
 def reduced_lm(cfg: TransformerConfig) -> TransformerConfig:

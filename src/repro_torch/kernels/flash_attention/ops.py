@@ -28,6 +28,16 @@ each kernel, and ``flash_attention_prefill_stats`` /
 ``flash_attention_prefill_f32_stats`` those of the prefill kernels that
 also wrote the rows' statistics.
 
+``meta`` tensors (a shape-only trace: the dry run,
+``repro_torch.launch.op_analysis``) take neither: :func:`_attention_meta`
+checks the call as :func:`kernel_args` does, picks the kernel
+:func:`route` would launch on the card (the prefill kernel of the dtype
+for :func:`attention_stats`), returns empty outputs of its shapes and
+dtypes and reports its work (:func:`~repro_torch.kernels.policy.
+report_meta_work`: 2·(D + Dv) operations per unmasked (query, key) pair;
+q, the outputs and the visible K and V, MLA's K alone, once).  No plan
+that needs a card is made, and no launch is counted.
+
 Training: when autograd records, :func:`attention` goes through
 :class:`FlashAttention`, the port of the reference's ``custom_vjp``: its
 forward :func:`attention_stats` (a prefill launch with the statistics
@@ -48,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..policy import use_kernel
+from ..policy import on_meta, report_meta_work, use_kernel
 from .ref import attention_ref, attention_ref_stats
 
 launches = {"flash_attention": 0, "flash_attention_prefill": 0,
@@ -213,18 +223,37 @@ def prefill_tile_plan(Sq: int, Sk: int, *, causal: bool, window: int | None,
     return plans
 
 
-def visible_range(Sq: int, Sk: int, *, causal: bool, window: int | None,
-                  q_offset: int) -> tuple[int, int]:
-    """``[lo, hi)``: the first and one-past-last key that any of the Sq
-    rows from ``q_offset`` sees (``lo == hi`` when none sees a key)."""
-    lo, hi = Sk, 0
-    for i in range(Sq):
-        qpos = i + q_offset
-        a = 0 if window is None else max(0, qpos - window + 1)
-        b = min(Sk, qpos + 1) if causal else Sk
-        if b > a:
-            lo, hi = min(lo, a), max(hi, b)
-    return (lo, hi) if hi > lo else (0, 0)
+def visible_pairs(Sq: int, Sk: int, *, causal: bool, window: int | None,
+                  q_offset: int) -> tuple[int, int, int]:
+    """``(pairs, lo, hi)``: the unmasked (query, key) pairs of the Sq rows
+    from ``q_offset``, and ``[lo, hi)``, the first and one-past-last key
+    that any of them sees (``(0, 0, 0)`` when none sees a key).
+
+    Row ``q`` sees keys ``[a(q), b(q))``, ``a = max(0, q - window + 1)``
+    (0 without a window) and ``b = min(Sk, q + 1)`` (Sk without causal).
+    Both grow with q, so the rows that see a key are one run ``[s, e)``
+    and ``lo, hi = a(s), b(e - 1)``; the pairs are sums of clamped ramps,
+    in closed form."""
+    s, e = q_offset, q_offset + Sq
+    if causal:
+        s = max(s, 0)
+    if window is not None:
+        e = min(e, Sk + window - 1)
+    if Sk <= 0 or e <= s:
+        return 0, 0, 0
+
+    def ramp(c: int) -> int:
+        """The sum of ``min(Sk, max(0, q + c))`` over q in ``[s, e)``."""
+        def below(t: int) -> int:         # the sum over x in [0, t)
+            t = max(t, 0)
+            m = min(t, Sk)
+            return m * (m - 1) // 2 + (t - m) * Sk
+        return below(e + c) - below(s + c)
+
+    b = ramp(1) if causal else Sk * (e - s)
+    a = 0 if window is None else ramp(1 - window)
+    lo = 0 if window is None else max(0, s - window + 1)
+    return b - a, lo, min(Sk, e) if causal else Sk
 
 
 def plan_splits(Sq: int, Sk: int, *, causal: bool, window: int | None,
@@ -292,8 +321,8 @@ def _cut_keys(Sq: int, Sk: int, causal: bool, window: int | None,
     """The call's visible keys cut into about ``want`` splits of whole
     ``tile``-key tiles, each at least :data:`DECODE_MIN_TILES` tiles.  A
     call that sees no key gets one empty split."""
-    lo, hi = visible_range(Sq, Sk, causal=causal, window=window,
-                           q_offset=q_offset)
+    _, lo, hi = visible_pairs(Sq, Sk, causal=causal, window=window,
+                              q_offset=q_offset)
     if hi == lo:
         return SplitPlan(lo, hi, 1, 1, tile)
     n_tiles = -(-hi // tile) - lo // tile
@@ -313,21 +342,11 @@ def _aligned(t: torch.Tensor, unit: int) -> bool:
     return True
 
 
-def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool, window: int | None, q_offset: int,
-                scale: float | None) -> tuple:
-    """Check what the kernel takes and return ``(q, k, v, sizes, flags)``
-    as it takes them; raises ``TypeError`` or ``ValueError`` on anything
-    else (head dims above :data:`MAX_HEAD_DIM` in f32, above
-    :data:`MLA_MAX_D` / :data:`MLA_MAX_DV` in bf16, included).
-
-    Every kernel copies 16-byte chunks (TMA, or 16-byte loads): views are
-    passed by their strides when the last dimension is contiguous, the
-    data 16-byte aligned and every other stride a multiple of 16 bytes (8
-    bf16, 4 f32 elements); others are copied.  D and Dv are zero-padded to
-    multiples of 16 and 8 in bf16 (the tensor cores' tile) and of 4 in f32
-    (zeros change no score and the extra output columns are dropped):
-    ``sizes`` then holds the padded dims."""
+def check_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               window: int | None) -> tuple[int, ...]:
+    """The checks of :func:`kernel_args`, on shapes and dtypes alone:
+    ``(B, Hq, Hkv, Sq, Sk, D, Dv)`` at the call's real head dims, or
+    ``TypeError`` / ``ValueError`` for a call no kernel takes."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes f32 or bf16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -353,10 +372,35 @@ def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attention kernel takes B·Hq <= {_MAX_GRID_Y}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    scale = float(scale if scale is not None else D ** -0.5)
+    return B, Hq, Hkv, Sq, Sk, D, Dv
+
+
+def padded_dims(D: int, Dv: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The head dims a kernel is given: D and Dv zero-padded to multiples
+    of 16 and 8 in bf16 (the tensor cores' tile, 16 bytes) and of 4 in
+    f32 (16 bytes)."""
+    bf16 = dtype == torch.bfloat16
     unit = 8 if bf16 else 4               # elements in 16 bytes
     d_unit = 16 if bf16 else 4            # bf16 D: the k16 tensor-core tile
-    Dp, Dvp = -(-D // d_unit) * d_unit, -(-Dv // unit) * unit
+    return -(-D // d_unit) * d_unit, -(-Dv // unit) * unit
+
+
+def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, window: int | None, q_offset: int,
+                scale: float | None) -> tuple:
+    """Check what the kernel takes (:func:`check_call`) and return ``(q,
+    k, v, sizes, flags)`` as it takes them.
+
+    Every kernel copies 16-byte chunks (TMA, or 16-byte loads): views are
+    passed by their strides when the last dimension is contiguous, the
+    data 16-byte aligned and every other stride a multiple of 16 bytes (8
+    bf16, 4 f32 elements); others are copied.  D and Dv are zero-padded
+    (:func:`padded_dims`; zeros change no score and the extra output
+    columns are dropped): ``sizes`` then holds the padded dims."""
+    B, Hq, Hkv, Sq, Sk, D, Dv = check_call(q, k, v, window=window)
+    scale = float(scale if scale is not None else D ** -0.5)
+    unit = 8 if q.dtype == torch.bfloat16 else 4    # elements in 16 bytes
+    Dp, Dvp = padded_dims(D, Dv, q.dtype)
     if Dp != D:
         q, k = (F.pad(t, (0, Dp - D)) for t in (q, k))
     if Dvp != Dv:
@@ -385,6 +429,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, q_offset, scale)
+    if on_meta(q, k, v):
+        return _attention_meta(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
     if not use_kernel(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)
@@ -399,6 +446,44 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = launch(q, k, v, sizes, flags)
     launches["flash_attention"] += 1
     return out if out.shape[-1] == dv else out[..., :dv]
+
+
+def _attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int | None, q_offset: int,
+                    stats: bool = False):
+    """The shape-only route for ``meta`` tensors: the checks of
+    :func:`kernel_args`, the source :func:`route` picks on the card (with
+    ``stats``, the prefill kernel of the dtype, as :func:`attention_stats`
+    launches it), and the call's work reported
+    (:func:`~repro_torch.kernels.policy.report_meta_work`): 2·(D + Dv)
+    operations per unmasked pair; q, the output (and ``m``, ``l``) and
+    the visible keys' K and V (MLA, v inside k: K alone) once, at the real
+    head dims, as ``PERF.md`` §6 row 4 bounds a launch.  Returns empty
+    ``[B, Hq, Sq, Dv]`` (and f32 ``[B, Hq, Sq]`` ``m``, ``l``)."""
+    B, Hq, Hkv, Sq, Sk, D, Dv = check_call(q, k, v, window=window)
+    Dp, Dvp = padded_dims(D, Dv, q.dtype)
+    if stats:
+        if max(Dp, Dvp) > MAX_HEAD_DIM:
+            raise ValueError(f"no prefill kernel with statistics past a "
+                             f"head dim of {MAX_HEAD_DIM}: got D={D}, "
+                             f"Dv={Dv}")
+        source = _PREFILL[q.dtype][0]
+    else:
+        source = route(Sq, Hq, Hkv, Dp, Dvp, q.dtype)
+    pairs, lo, hi = visible_pairs(Sq, Sk, causal=causal, window=window,
+                                  q_offset=q_offset)
+    kv = D if _v_in_k(k, v) else D + Dv
+    nbytes = q.element_size() * (B * Hq * Sq * (D + Dv) +
+                                 B * Hkv * (hi - lo) * kv)
+    if stats:
+        nbytes += 2 * 4 * B * Hq * Sq
+    report_meta_work(source, flops=2.0 * B * Hq * pairs * (D + Dv),
+                     nbytes=float(nbytes), dtype=q.dtype)
+    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
+    if not stats:
+        return out
+    m = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    return out, m, torch.empty_like(m)
 
 
 def _attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -513,9 +598,11 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
 def _v_in_k(k: torch.Tensor, v: torch.Tensor) -> bool:
     """True when ``v`` is a view of ``k``'s first columns (MLA's absorbed
     decode passes ``k_cat[..., :kv_lora]``): the MLA kernels then read V
-    from K's tile in shared memory and load no V tile."""
-    return (v.data_ptr() == k.data_ptr() and v.shape[-1] <= k.shape[-1] and
-            v.stride()[:3] == k.stride()[:3])
+    from K's tile in shared memory and load no V tile.  By storage and
+    offset, not data pointer: ``meta`` tensors' pointers are all 0."""
+    return (v.untyped_storage()._cdata == k.untyped_storage()._cdata and
+            v.storage_offset() == k.storage_offset() and
+            v.shape[-1] <= k.shape[-1] and v.stride()[:3] == k.stride()[:3])
 
 
 def mla_cluster_slots(dev, n: int, v_in_k: bool = True) -> int:
@@ -622,6 +709,9 @@ def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     statistics output: ``out`` is what the same launch without it gives,
     bit for bit.  bf16 past a head dim of 256 (MLA's absorbed decode,
     which training does not run) raises ``ValueError``."""
+    if on_meta(q, k, v):
+        return _attention_meta(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, stats=True)
     if not use_kernel(q, k, v):
         return attention_ref_stats(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)

@@ -3,9 +3,13 @@ activation helpers, in PyTorch.
 
 Parameters are declared once as :class:`ParamDef` trees (nested dicts) with
 the JAX package's logical axis names kept beside each shape, so a tree here
-has exactly the keys, shapes and dtypes of the reference's.  The sharding
-helpers of the reference (``logical_to_spec``, ``param_shardings``,
-``param_pspecs``) are not ported: one card has no mesh.
+has exactly the keys, shapes and dtypes of the reference's.  Of the
+reference's sharding helpers, :func:`logical_to_spec` and
+:func:`param_pspecs` are ported for the dry run, with a partition spec as
+a plain tuple (one mesh axis name, a tuple of names, or ``None`` per
+dimension); ``param_shardings`` is not: the port places no tensor on a
+mesh.  :func:`abstract_params` gives ``meta`` tensors, the dry run's
+stand-in for the reference's ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -37,6 +41,23 @@ def tree_map_defs(fn: Callable[[ParamDef], Any], tree: Tree) -> Tree:
     for k, v in tree.items():
         out[k] = fn(v) if isinstance(v, ParamDef) else tree_map_defs(fn, v)
     return out
+
+
+def abstract_params(tree: Tree) -> Tree:
+    """A ``meta`` tensor of each leaf's shape and dtype: no allocation."""
+    return tree_map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                               device="meta"), tree)
+
+
+def logical_to_spec(axes: tuple[str | None, ...],
+                    rules: dict[str, Any]) -> tuple:
+    """The mesh axes of each logical axis under ``rules`` (``None`` where
+    an axis has no rule): the reference's ``PartitionSpec`` as a tuple."""
+    return tuple(rules.get(a) if a is not None else None for a in axes)
+
+
+def param_pspecs(tree: Tree, rules: dict[str, Any]) -> Tree:
+    return tree_map_defs(lambda d: logical_to_spec(d.axes, rules), tree)
 
 
 # A leaf whose f32 draw would pass DRAW_LIMIT_BYTES is drawn in runs of its

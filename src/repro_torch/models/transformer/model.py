@@ -321,7 +321,13 @@ def _dispatch_group(xf: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
     ``(buf [G, E, C, d], se, slot_c, tok, comb_w)``, the last four
     ``[G, T·K]`` in expert-sorted order.  Assignments are sorted by expert
     (stable, so a slot is the rank in token order), slot = rank within the
-    expert, those past capacity C dropped (weight 0, slot 0)."""
+    expert, those past capacity C dropped (weight 0, slot 0).
+
+    Every assignment is written, so every shape is static (no
+    ``nonzero``, no device-to-host read, and the dispatch traces on the
+    ``meta`` device): the buffer is ``G·E·C`` rows plus one spill row,
+    kept rows go to their own (unique) row and dropped ones all to the
+    spill row, which is cut off; what is left is a contiguous view."""
     G, T, d = xf.shape
     flat_e = ids.reshape(G, T * K)
     order = torch.argsort(flat_e, dim=1, stable=True)
@@ -334,10 +340,11 @@ def _dispatch_group(xf: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
     tok = order // K
     slot_c = torch.where(keep, slot, 0).to(torch.int32)
     comb_w = torch.where(keep, w.reshape(G, T * K).gather(1, order), 0.0)
-    buf = xf.new_zeros((G, E, C, d))
-    g, col = keep.nonzero(as_tuple=True)
-    buf[g, se[g, col], slot[g, col]] = xf[g, tok[g, col]]
-    return buf, se, slot_c, tok, comb_w
+    g = torch.arange(G, device=xf.device)[:, None]
+    row = torch.where(keep, (g * E + se) * C + slot, G * E * C)
+    buf = xf.new_zeros((G * E * C + 1, d))
+    buf[row.reshape(-1)] = xf[g, tok].reshape(G * T * K, d)
+    return buf[:G * E * C].view(G, E, C, d), se, slot_c, tok, comb_w
 
 
 def _combine_group(h: torch.Tensor, se: torch.Tensor, slot_c: torch.Tensor,
@@ -406,7 +413,9 @@ def _moe_ffn(p: dict, i: int, x: torch.Tensor,
     del g, u
     out = _combine_group(h, se, slot_c, tok, comb_w, T).reshape(B, S, d)
     me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
-    ce = torch.bincount(ids.reshape(-1), minlength=E).float() / (G * T * K)
+    flat = ids.reshape(-1)
+    ce = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float() / (G * T * K)
     aux = E * torch.sum(me * ce)
     if moe.n_shared:
         out = out + swiglu(x, p["s_gate"][i], p["s_up"][i], p["s_down"][i])

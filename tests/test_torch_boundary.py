@@ -81,11 +81,17 @@ _GNN_DIN_MODULES = ("repro_torch.configs.shapes",
                     "repro_torch.models.recsys.din",
                     "repro_torch.models.recsys.embedding")
 
+# the dry run's modules
+_DRYRUN_MODULES = ("repro_torch.configs.registry",
+                   "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                   "repro_torch.launch.op_analysis")
+
 
 def test_port_imports_without_jax_or_repro():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT),
-                          ",".join(_TRAINING_MODULES + _GNN_DIN_MODULES)],
+                          ",".join(_TRAINING_MODULES + _GNN_DIN_MODULES
+                                   + _DRYRUN_MODULES)],
                          capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 25     # every module was walked

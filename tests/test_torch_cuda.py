@@ -26,7 +26,9 @@ chain kernel (two launches a timepoint) against the CPU path; for GNN and
 DIN, the four reduced GNNs (two with gather chunks) and reduced DIN on the
 card against the CPU (gradients within 1e-4 of each leaf's largest
 magnitude: aggregation on the card adds with float atomics) and the
-chunked gather and segment sum at 1, 3, 4 and 32 chunks.
+chunked gather and segment sum at 1, 3, 4 and 32 chunks; for the dry run,
+CUDA inputs launch the attention kernels under its accounting mode and
+take no shape-only route, which ``meta`` copies of them take.
 This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1227,3 +1229,33 @@ def test_cuda_chunked_functions_match_cpu(cuda_device, n_chunks):
     assert torch.equal(dev[0], cpu[0]) and torch.equal(dev[3], cpu[3])
     for a, b in ((dev[1], cpu[1]), (dev[2], cpu[2])):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,stats", [(64, False), (1, False), (64, True)])
+def test_cuda_attention_takes_no_meta_route(cuda_device, Sq, stats):
+    """CUDA inputs launch the kernel under the dry run's accounting mode
+    too, and report no shape-only route; ``meta`` copies of the same
+    inputs on the same machine take that route and launch nothing."""
+    from repro_torch.launch.op_analysis import OpAnalysis
+
+    g = torch.Generator().manual_seed(Sq)
+    q, k, v = (torch.randn(s, generator=g).to(torch.bfloat16) for s in
+               ((1, 4, Sq, 64), (1, 1, 80, 64), (1, 1, 80, 64)))
+    fn = fa_ops.attention_stats if stats else attention
+    kw = dict(causal=True, window=None, q_offset=80 - Sq)
+    n0 = launch_counts()
+    with OpAnalysis() as acct:
+        got = fn(*(t.to(cuda_device) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == n0["flash_attention"] + 1
+    assert acct.kernels == {}
+    n1 = launch_counts()
+    with OpAnalysis() as acct:
+        meta = fn(*(t.to("meta") for t in (q, k, v)), **kw)
+    assert launch_counts() == n1
+    (route, rec), = acct.kernels.items()
+    assert rec["launches"] == 1
+    assert route == ("flash_decode" if Sq == 1 else "flash_prefill")
+    for m, c in zip(meta if stats else (meta,), got if stats else (got,)):
+        assert m.is_meta and m.shape == c.shape and m.dtype == c.dtype
