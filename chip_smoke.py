@@ -208,8 +208,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 11. the dry run (``repro_torch.launch.dryrun``), which needs no card:
    (a) the whole sweep, 40 cells on both production meshes, traced on
    the ``meta`` device: 74 records ok, 6 skipped (``long_500k`` of yi-34b,
-   stablelm-12b and arctic-480b), none in error; a line a record and the
-   sweep's seconds.  (b) The eight cells phase 10 runs at their
+   stablelm-12b and arctic-480b), none in error; a line a record (its
+   ``collective_s`` from the sharding pass, its bottleneck of the three
+   terms, any op the pass has no rule for, which fails the phase), the
+   cells by bottleneck on each mesh, and the sweep's seconds.  (b) The eight cells phase 10 runs at their
    registered shapes (gcn-cora × ``full_graph_sm``, gin-tu ×
    ``molecule``, meshgraphnet and dimenet × ``minibatch_lg``, DIN ×
    ``train_batch``, ``serve_p99``, ``serve_bulk``, ``retrieval_cand``):
@@ -234,6 +236,18 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    card's totals exactly (their predicted peaks printed, not held: the
    kernels' workspaces exist on the card only).  The phase's record is printed on
    its own line before the kernels' record.
+12. the retrieval examples through their functions, on the card: (a)
+   ``examples/pt_quickstart.py`` as written, its lines equal to a host
+   run's; (b) ``examples/pt_evolution_analysis.py`` on phase 2's manager
+   at 6 epochs (one multipoint retrieval, PageRank of the stacked planes
+   on the card by ``index_add_``, within 1e-5 of the host's from the same
+   planes; the rank table and the triangle counts on the host); (c)
+   ``examples/pt_snapshot_server.py`` on a manager of the main history
+   built with the example's index parameters but L = 50,000 and 4
+   partitions, 64 requests in batches of 8, the first batch's masks equal
+   to ``replay``, p50 / p99 printed.  Wall seconds of each; launch counts
+   zeroed before and read after (none of the four kernels runs: retrieval
+   through the query service is host work).
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -354,6 +368,15 @@ DRYRUN_CARD_CELLS = (("gcn-cora", "full_graph_sm"), ("gin-tu", "molecule"),
                      ("din", "serve_p99"), ("din", "serve_bulk"),
                      ("din", "retrieval_cand"))
 PEAK_BAND = (0.8, 1.25)
+# the retrieval examples (phase 12): the evolution analysis at the
+# example's 6 epochs over the main history, its PageRank planes on the card
+# within PAGERANK_TOL of the host's, relative to the largest rank (a rank
+# sums to 1 over ~600k nodes, so a node's is ~1e-6; index_add_ adds with
+# float atomics on the card); the snapshot server on the main history at the example's
+# index parameters (k 4, "balanced", 4 partitions) but L 50,000, as the
+# main path's manager, SERVER_REQUESTS requests in batches of SERVER_BATCH
+EXAMPLE_EPOCHS, PAGERANK_TOL = 6, 1e-5
+SERVER_L, SERVER_REQUESTS, SERVER_BATCH = 50_000, 64, 8
 # PyTorch's default cuBLAS workspace on sm_90 (CUBLAS_WORKSPACE_CONFIG
 # ":4096:8", 8 chunks of 4096 KiB): what a first product may leave held
 CUBLAS_WORKSPACE_BYTES = 8 * 4096 * 1024
@@ -2407,13 +2430,12 @@ def train_phase(dev) -> list[dict]:
     return recs
 
 
-def load_example(root: Path):
-    """``examples/pt_temporal_gnn_train.py`` of the checkout at ``root``."""
+def load_example(root: Path, name: str = "pt_temporal_gnn_train"):
+    """``examples/<name>.py`` of the checkout at ``root``."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "pt_temporal_gnn_train",
-        root / "examples" / "pt_temporal_gnn_train.py")
+        name, root / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2985,12 +3007,28 @@ def dryrun_phase(dev, card: dict) -> dict:
     check(counts == DRYRUN_SWEEP, f"dry run sweep: {counts}, not "
           f"{DRYRUN_SWEEP}: " + "; ".join(
               r["error"] for r in results.values() if r["status"] == "error"))
+    ok = {k: r for k, r in results.items() if r["status"] == "ok"}
+    unmodeled = {k: r["collectives_unmodeled"] for k, r in ok.items()
+                 if r["collectives_unmodeled"]}
+    check(not unmodeled, f"dry run: ops without a sharding rule {unmodeled}")
+    check(all(math.isfinite(r["roofline"]["collective_s"]) and
+              r["roofline"]["collective_s"] >= 0 for r in ok.values()),
+          "dry run: a collective term that is not finite")
+    bottlenecks = {mesh: {b: sorted(k.split("|", 2)[0] + " x " +
+                                    k.split("|", 2)[1] for k, r in ok.items()
+                                    if k.endswith(mesh) and
+                                    r["roofline"]["bottleneck"] == b)
+                          for b in ("compute_s", "memory_s", "collective_s")}
+                   for mesh in ("single", "multi")}
+    print(f"dryrun: (a) cells by bottleneck on each mesh (collective_s: "
+          f"the sharding pass's bytes over {dryrun.LINK_BW:.0f} B/s) "
+          f"{json.dumps(bottlenecks)}")
 
     one = make_mesh((1, 1), ("data", "model"))
     cells = {}
     for arch, shape in DRYRUN_CARD_CELLS:
         cell = get_cell(arch, shape, one)
-        counted, trace_s = dryrun.trace_cell(cell)
+        counted, trace_s, _ = dryrun.trace_cell(cell, record=False)
         roof = dryrun.roofline(counted, 1, cell.flops_model)
         torch.cuda.synchronize()
         m0 = torch.cuda.memory_allocated(dev)
@@ -3075,6 +3113,11 @@ def dryrun_phase(dev, card: dict) -> dict:
     check(meta == card, f"meta-traced launches {meta} differ from the "
           f"card's {card}")
     rec = {"sweep": {"records": len(results), **counts, "seconds": sweep_s,
+                     "partition_s": sum(r["partition_s"]
+                                        for r in ok.values()),
+                     "bottlenecks": bottlenecks,
+                     "collective_s": {k: r["roofline"]["collective_s"]
+                                      for k, r in ok.items()},
                      "trace_s_by_cell": {
                          k.rsplit("|", 1)[0]: r["trace_s"]
                          for k, r in results.items()
@@ -3083,6 +3126,119 @@ def dryrun_phase(dev, card: dict) -> dict:
            "lm_predicted_peak_bytes": lm_peaks,
            "peak_band": PEAK_BAND, "phase_s": time.perf_counter() - t_phase}
     print(f"dryrun: phase {rec['phase_s']:.3f} s")
+    return rec
+
+
+def examples_phase(gm, uni, ev, dev, root: Path) -> dict:
+    """Phase 12, the three retrieval examples through their functions on
+    the card: (a) ``pt_quickstart`` as written, its lines equal to the
+    host's; (b) ``pt_evolution_analysis`` on the main history's manager
+    at :data:`EXAMPLE_EPOCHS` epochs, its PageRank planes on the card
+    within :data:`PAGERANK_TOL` of the host's from the same planes
+    (relative to the host's largest rank); (c)
+    ``pt_snapshot_server`` on a manager of the main history built with
+    the example's index parameters but ``L`` = :data:`SERVER_L`,
+    :data:`SERVER_REQUESTS` requests in batches of :data:`SERVER_BATCH`,
+    the first batch's masks equal to ``replay``.  Each part's wall
+    seconds; launch counts zeroed before and read after."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import GraphManager, replay
+
+    t_phase = time.perf_counter()
+    rec: dict = {}
+    kernels.reset_launch_counts()
+
+    qs = load_example(root, "pt_quickstart")
+    lines: dict[str, list] = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        u, e = qs.build_history()
+        qgm = qs.make_manager(u, e, where)
+        got = lines[str(where)] = []
+        qs.tour(qgm, u, log=lambda *a: got.append(" ".join(map(str, a))))
+        qgm.close()
+        if where == dev:
+            rec["quickstart_s"] = time.perf_counter() - t0
+    check(lines[str(dev)] == lines["cpu"], "quickstart: the card's lines "
+          "differ from the host's")
+    print(f"examples: (a) quickstart {rec['quickstart_s']:.3f} s, "
+          f"{len(lines['cpu'])} lines, equal to the host's:")
+    for line in lines[str(dev)]:
+        print(f"examples:   {line}")
+
+    ea = load_example(root, "pt_evolution_analysis")
+    epochs = ea.epoch_times(int(ev.time[-1]), EXAMPLE_EPOCHS)
+    t0 = time.perf_counter()
+    hs, nps, eps = ea.retrieve(gm, epochs)
+    t1 = time.perf_counter()
+    prs = ea.pagerank(gm, nps, eps, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    table = ea.rank_table(uni, prs.cpu().numpy(), epochs)
+    tri = ea.triangle_lines(uni, hs, epochs)
+    t3 = time.perf_counter()
+    for h in hs:
+        h.close()
+    host = ea.pagerank(gm, nps, eps, "cpu")
+    err = float((prs.cpu() - host).abs().max() / host.abs().max())
+    check(bool(torch.isfinite(prs).all()) and err <= PAGERANK_TOL,
+          f"evolution analysis: PageRank on the card {err} of the host's "
+          f"largest rank from the host's")
+    rec["evolution"] = {"epochs": epochs, "retrieve_s": t1 - t0,
+                        "pagerank_s": t2 - t1, "host_s": t3 - t2,
+                        "wall_s": t3 - t0, "pagerank_max_rel_err": err,
+                        "launches": kernels.launch_counts()}
+    print(f"examples: (b) evolution analysis, {len(epochs)} epochs of the "
+          f"main history: {rec['evolution']['wall_s']:.3f} s (retrieval "
+          f"{t1 - t0:.3f}, PageRank on the card {t2 - t1:.3f}, ranks and "
+          f"triangles on the host {t3 - t2:.3f}); PageRank within {err:.3g} "
+          f"of the host's largest rank; kernel launches "
+          f"{json.dumps(rec['evolution']['launches'])}")
+    for line in table + tri:
+        print(f"examples:   {line}")
+
+    srv = load_example(root, "pt_snapshot_server")
+    t0 = time.perf_counter()
+    sgm = GraphManager(uni, ev, L=SERVER_L, k=4, diff_fn="balanced",
+                        num_partitions=4, device=dev)
+    build_s = time.perf_counter() - t0
+    checked = []
+
+    def first_batch(times, results):
+        if checked:
+            return
+        for t, r in zip(times, results):
+            truth = replay(uni, ev, t)
+            check(np.array_equal(r.value.node_mask, truth.node_mask) and
+                  np.array_equal(r.value.edge_mask, truth.edge_mask),
+                  f"snapshot server: t={t} differs from replay")
+        checked.extend(times)
+
+    kernels.reset_launch_counts()
+    stats = srv.serve(sgm, int(ev.time[-1]), SERVER_REQUESTS, SERVER_BATCH,
+                      on_batch=first_batch)
+    served = []
+    srv.report(sgm, stats, log=served.append)
+    fetches, hedged = srv.straggler_schedule(sgm, int(ev.time[-1]))
+    sgm.close()
+    lat = stats["lat_ms"]
+    rec["server"] = {"build_s": build_s, "wall_s": stats["wall_s"],
+                     "served": stats["served"], "kv_gets": stats["kv_gets"],
+                     "p50_ms": float(np.percentile(lat, 50)),
+                     "p99_ms": float(np.percentile(lat, 99)),
+                     "replay_checked": checked, "fetches": fetches,
+                     "hedged": hedged, "launches": kernels.launch_counts()}
+    check(len(checked) == SERVER_BATCH and stats["served"] ==
+          SERVER_REQUESTS, "snapshot server: batches not served")
+    print(f"examples: (c) snapshot server on the main history (L "
+          f"{SERVER_L}, 4 partitions, index built in {build_s:.3f} s): "
+          + "; ".join(served) + f"; straggler scheduler {fetches} "
+          f"fetches, {hedged} hedged; the first batch equals replay")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"examples: phase {rec['phase_s']:.3f} s")
     return rec
 
 
@@ -3505,7 +3661,6 @@ def main() -> int:
 
     # ----------------------------------------------------------- GNN and DIN
     gnn_din = gnn_din_phase(gm, ev, dev, src.parent)
-    gm.close()
     for rec in record:
         if rec["name"] in RETRIEVAL_KERNELS:
             rec["temporal_gcn_launches"] = gnn_din["temporal_gcn"][
@@ -3523,6 +3678,11 @@ def main() -> int:
                     "launches"]["flash_attention_prefill"]},
                 "decode": {"flash_mla": mla_rec["launches"]}}}
     print(json.dumps({"dryrun": dryrun_phase(dev, card)}))
+
+    # -------------------------------------------------------------- examples
+    print(json.dumps({"examples": examples_phase(gm, uni, ev, dev,
+                                                 src.parent)}))
+    gm.close()
 
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

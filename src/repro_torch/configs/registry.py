@@ -11,9 +11,11 @@ each parameter's logical axes through the per-family rules, as the
 reference derives its ``PartitionSpec``s.  A spec here is a plain tuple:
 one entry per dimension, a mesh axis name, a tuple of names or ``None``.
 Parameter counts and model FLOPs are the reference's formulas, term for
-term.  Two differences from the reference's cells (``ROADMAP.md`` §3):
-the port's ``TransformerConfig`` has no ``act_spec`` (no sharding
-constraint to carry), and a decode cell's ``cache_len`` is a Python int
+term.  The LM cells set ``act_spec`` and the GNN cells ``node_spec`` /
+``edge_spec``, as the reference's do: their steps then carry the
+reference's sharding constraints (``models/common.py::constrain``), which
+the dry run's sharding pass reads.  One difference from the reference's
+cells (``ROADMAP.md`` §3): a decode cell's ``cache_len`` is a Python int
 (``S - 1`` on a cache of ``max_len = S``) where the reference traces an
 int32 scalar.
 """
@@ -240,6 +242,7 @@ def _lm_cell(arch_id: str, shape_id: str, mesh, multi_pod: bool) -> Cell:
                     "(DESIGN.md §4)", cfg=cfg)
     rules = mesh_rules(mesh, multi_pod)
     batch_ax = rules["batch"]
+    cfg = dataclasses.replace(cfg, act_spec=(batch_ax, "model", None))
     defs = tm.param_defs(cfg)
     params_abs = mc.abstract_params(defs)
     p_specs = _param_pspecs(defs, rules, mesh)
@@ -369,7 +372,7 @@ def _gnn_cell(arch_id: str, shape_id: str, mesh, multi_pod: bool) -> Cell:
     elif cfg.kind == "meshgraphnet":
         cfg = dataclasses.replace(cfg, d_node_in=shape.d_feat)
     # edge tensors 256-way sharded, node tensors on 'data' only (the
-    # reference's choice; the specs have no effect on the port's step)
+    # reference's choice: the step constrains its node and edge tensors)
     big_full = shape.kind == "full" and shape.n_nodes > 100_000
     extra = {}
     if big_full and cfg.kind in ("meshgraphnet", "dimenet"):

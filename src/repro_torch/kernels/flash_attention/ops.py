@@ -477,13 +477,14 @@ def _attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  B * Hkv * (hi - lo) * kv)
     if stats:
         nbytes += 2 * 4 * B * Hq * Sq
+    outs = (torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device),)
+    if stats:
+        m = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        outs += (m, torch.empty_like(m))
     report_meta_work(source, flops=2.0 * B * Hq * pairs * (D + Dv),
-                     nbytes=float(nbytes), dtype=q.dtype)
-    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
-    if not stats:
-        return out
-    m = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    return out, m, torch.empty_like(m)
+                     nbytes=float(nbytes), dtype=q.dtype, inputs=(q, k, v),
+                     outputs=outs)
+    return outs if stats else outs[0]
 
 
 def _attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

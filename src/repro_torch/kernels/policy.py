@@ -54,15 +54,16 @@ def on_meta(*tensors) -> bool:
 
 
 def report_meta_work(route: str, *, flops: float, nbytes: float,
-                     dtype: torch.dtype) -> None:
-    """Hand one shape-only kernel call (its route, the operations it does
-    and the bytes it must move) to every active dispatch mode that
-    accounts kernels (a ``record_kernel`` method); nothing happens
-    outside one."""
+                     dtype: torch.dtype, inputs=(), outputs=()) -> None:
+    """Hand one shape-only kernel call (its route, the operations it does,
+    the bytes it must move, and its input and output tensors) to every
+    active dispatch mode that accounts kernels (a ``record_kernel``
+    method); nothing happens outside one."""
     for mode in _get_current_dispatch_mode_stack():
         record = getattr(mode, "record_kernel", None)
         if record is not None:
-            record(route, flops=flops, nbytes=nbytes, dtype=dtype)
+            record(route, flops=flops, nbytes=nbytes, dtype=dtype,
+                   inputs=inputs, outputs=outputs)
 
 
 def resolve_device(device="cuda") -> torch.device:

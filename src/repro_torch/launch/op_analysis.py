@@ -25,16 +25,21 @@ computed) and accounts
   an op creates, freed when the storage dies (autograd's saved tensors
   keep theirs alive, as on the card);
 * **a per-op breakdown** (calls, bytes, flops by op name) and the calls
-  per kernel route (``launches``: what the card would launch).
+  per kernel route (``launches``: what the card would launch);
+* with ``record=True``, **the program** (:class:`Program`): every op as
+  ``(op, input ids, output ids, arguments)``, a kernel route's call as
+  one entry too, and each tensor's shape and element size, for the
+  sharding pass (``launch/sharding.py``) to replay under a mesh.
 
 No trip-count logic is needed: the Python layer loop shows every op, and
 ``torch.utils.checkpoint``'s recompute runs (and is counted) in the
-backward, as the reference's rematerialised HLO counts it.  There is no
-collective term: one traced program has no partitioner to read
-collectives from.
+backward, as the reference's rematerialised HLO counts it.  The
+collective term, which the reference reads from its partitioned HLO, is
+the sharding pass's: one traced program has no partitioner.
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from collections import defaultdict
 
@@ -84,12 +89,52 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class Ref(int):
+    """A tensor argument of a recorded op: its id in the program."""
+    __slots__ = ()
+
+
+@dataclasses.dataclass
+class Program:
+    """One traced step as the sharding pass reads it.  ``ops``: ``(op,
+    input ids, output ids, args, kwargs)``, ``op`` an aten overload or
+    ``("kernel", route)``, tensors in ``args`` / ``kwargs`` as
+    :class:`Ref`; ``shapes``: id -> ``(shape, element size)``;
+    ``arguments``: the step's argument ids, in the order of its argument
+    tree; ``outputs``: the ids of what it returns."""
+    ops: list = dataclasses.field(default_factory=list)
+    shapes: dict = dataclasses.field(default_factory=dict)
+    arguments: list = dataclasses.field(default_factory=list)
+    outputs: list = dataclasses.field(default_factory=list)
+
+
+def _leaves(tree):
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
 class OpAnalysis(TorchDispatchMode):
     """Accounts every op run while it is active (``with OpAnalysis() as
     a: step(*args)``); :meth:`summary` reports."""
 
-    def __init__(self):
+    def __init__(self, record: bool = False):
         super().__init__()
+        self.program = Program() if record else None
+        # a tensor's id by its view of memory (storage, offset, shape,
+        # strides, dtype): a saved tensor unpacked by autograd is a new
+        # tensor object over the same view, and keeps its id.  The views
+        # of a storage are forgotten when it dies: a later storage at the
+        # same address (a wrapped Python number, made outside the mode)
+        # is a new tensor
+        self._ids: dict[tuple, int] = {}
+        self._views: dict[int, list] = defaultdict(list)
         self.flops: dict[str, float] = defaultdict(float)
         self.hbm_bytes = 0.0
         self.ops: dict[str, list] = {}        # name -> [calls, bytes, flops]
@@ -116,18 +161,70 @@ class OpAnalysis(TorchDispatchMode):
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self._live.pop(key)
+        for view in self._views.pop(key, ()):
+            self._ids.pop(view, None)
 
     def track_arguments(self, tree) -> None:
         """Count every tensor of ``tree`` (dicts, lists, tuples) as an
         argument of the step, live from the start."""
-        if isinstance(tree, torch.Tensor):
-            self.argument_bytes += self._track(tree)
-        elif isinstance(tree, dict):
-            for v in tree.values():
-                self.track_arguments(v)
-        elif isinstance(tree, (list, tuple)):
-            for v in tree:
-                self.track_arguments(v)
+        for t in _leaves(tree):
+            self.argument_bytes += self._track(t)
+            if self.program is not None:
+                self.program.arguments.append(self._id(t))
+
+    # -- the program ---------------------------------------------------------
+    @staticmethod
+    def _view_key(t: torch.Tensor) -> tuple:
+        return (t.untyped_storage()._cdata, t.storage_offset(), t.shape,
+                t.stride(), t.dtype)
+
+    def _id(self, t: torch.Tensor) -> int:
+        """``t``'s id; a tensor not seen before gets a new one."""
+        key = self._view_key(t)
+        i = self._ids.get(key)
+        if i is None:
+            i = self._new_id(t, key)
+        return i
+
+    def _new_id(self, t: torch.Tensor, key: tuple | None = None) -> int:
+        prog = self.program
+        i = len(prog.shapes)
+        prog.shapes[i] = (tuple(t.shape), t.element_size())
+        key = key or self._view_key(t)
+        self._ids[key] = i
+        self._views[key[0]].append(key)
+        return i
+
+    def _ref(self, a, in_ids: list):
+        """``a`` with its tensors as :class:`Ref` (their ids appended to
+        ``in_ids``, in the order :func:`_tensors` yields them)."""
+        if isinstance(a, torch.Tensor):
+            r = Ref(self._id(a))
+            in_ids.append(r)
+            return r
+        if isinstance(a, (list, tuple)) and any(
+                isinstance(x, torch.Tensor) for x in a):
+            out = []
+            for x in a:
+                if isinstance(x, torch.Tensor):
+                    x = Ref(self._id(x))
+                    in_ids.append(x)
+                out.append(x)
+            return out
+        return a
+
+    def _record(self, op, args, kwargs, outs) -> None:
+        in_ids: list = []
+        rargs = tuple(self._ref(a, in_ids) for a in args)
+        rkw = {k: self._ref(v, in_ids) for k, v in kwargs.items()} \
+            if kwargs else kwargs
+        out_ids = tuple(self._new_id(t) for t in outs)
+        self.program.ops.append((op, tuple(in_ids), out_ids, rargs, rkw))
+
+    def mark_outputs(self, tree) -> None:
+        """Note the step's outputs (``tree``'s tensors)."""
+        if self.program is not None:
+            self.program.outputs = [self._id(t) for t in _leaves(tree)]
 
     # -- work ----------------------------------------------------------------
     def _add(self, name: str, nbytes: float, flops: float,
@@ -143,14 +240,17 @@ class OpAnalysis(TorchDispatchMode):
             self.flops[dtype_name(dtype)] += flops
 
     def record_kernel(self, route: str, *, flops: float, nbytes: float,
-                      dtype: torch.dtype) -> None:
-        """One hand-written kernel's call, from its shape-only route."""
+                      dtype: torch.dtype, inputs=(), outputs=()) -> None:
+        """One hand-written kernel's call, from its shape-only route
+        (``inputs`` and ``outputs``: its tensors, for the program)."""
         k = self.kernels.setdefault(route, {"launches": 0, "flops": 0.0,
                                             "bytes": 0.0})
         k["launches"] += 1
         k["flops"] += flops
         k["bytes"] += nbytes
         self._add(route, nbytes, flops, dtype)
+        if self.program is not None:
+            self._record(("kernel", route), tuple(inputs), {}, outputs)
 
     def _kind(self, func) -> tuple:
         """``(name, moves data, a gather, flop formula or None)`` of an
@@ -169,6 +269,8 @@ class OpAnalysis(TorchDispatchMode):
         outs = _outputs(out)
         for t in outs:
             self._track(t)
+        if self.program is not None:
+            self._record(func, args, kwargs, outs)
         name, moves, gather, count = self._kind(func)
         if not moves:
             return out
@@ -203,13 +305,14 @@ class OpAnalysis(TorchDispatchMode):
                 "top_by_bytes": rows(1), "top_by_flops": rows(2)}
 
 
-def analyze(fn, *args) -> OpAnalysis:
+def analyze(fn, *args, record: bool = False) -> OpAnalysis:
     """Run ``fn(*args)`` under an :class:`OpAnalysis` with ``args``
-    counted as arguments; the output is dropped inside the count (its
-    bytes were live at the peak)."""
-    mode = OpAnalysis()
+    counted as arguments (``record``: and the program kept); the output
+    is dropped inside the count (its bytes were live at the peak)."""
+    mode = OpAnalysis(record)
     mode.track_arguments(args)
     with mode:
         out = fn(*args)
+        mode.mark_outputs(out)
         del out
     return mode

@@ -9,7 +9,10 @@ reference's sharding helpers, :func:`logical_to_spec` and
 a plain tuple (one mesh axis name, a tuple of names, or ``None`` per
 dimension); ``param_shardings`` is not: the port places no tensor on a
 mesh.  :func:`abstract_params` gives ``meta`` tensors, the dry run's
-stand-in for the reference's ``ShapeDtypeStruct``s.
+stand-in for the reference's ``ShapeDtypeStruct``s.  :func:`constrain` is
+the reference's ``with_sharding_constraint``: an identity that the dry
+run's sharding pass (``launch/sharding.py``) reads, emitted only where a
+spec is set.
 """
 from __future__ import annotations
 
@@ -47,6 +50,78 @@ def abstract_params(tree: Tree) -> Tree:
     """A ``meta`` tensor of each leaf's shape and dtype: no allocation."""
     return tree_map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
                                                device="meta"), tree)
+
+
+# ---------------------------------------------------------------------------
+# sharding constraints
+# ---------------------------------------------------------------------------
+#
+# ``repro_torch::constrain(x, spec)`` returns a view of ``x``: no copy, no
+# bytes, no storage, on any device.  The reference's
+# ``jax.lax.with_sharding_constraint`` tells XLA's partitioner where a
+# tensor lies on the mesh; here the op only marks the place in a traced
+# program, for ``launch/sharding.py`` to replay.  Its gradient is the
+# incoming gradient under the same spec, as the transpose of a sharding
+# constraint is one.  A spec travels as a string: one entry a dimension,
+# ``|`` between them, each the dimension's mesh axes joined by ``+`` (empty:
+# not sharded).
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("constrain(Tensor(a) x, str spec) -> Tensor(a)")
+
+
+def _constrain_view(x: torch.Tensor, spec: str) -> torch.Tensor:
+    return x.view_as(x)
+
+
+for _key in ("CPU", "CUDA", "Meta"):
+    _LIB.impl("constrain", _constrain_view, _key)
+
+
+class _Constrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec):
+        ctx.spec = spec
+        with torch._C._AutoDispatchBelowAutograd():
+            return torch.ops.repro_torch.constrain(x, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.ops.repro_torch.constrain(g, ctx.spec), None
+
+
+def _constrain_autograd(x: torch.Tensor, spec: str) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Constrain.apply(x, spec)
+    with torch._C._AutoDispatchBelowAutograd():
+        return torch.ops.repro_torch.constrain(x, spec)
+
+
+_LIB.impl("constrain", _constrain_autograd, "Autograd")
+
+
+def encode_spec(spec: tuple) -> str:
+    """A spec tuple (per dimension: ``None``, an axis name or a tuple of
+    names) as the op's string."""
+    return "|".join("" if ax is None else
+                    "+".join(ax if isinstance(ax, tuple) else (ax,))
+                    for ax in spec)
+
+
+def decode_spec(text: str, ndim: int) -> tuple[tuple[str, ...], ...]:
+    """The op's string back as ``ndim`` tuples of axis names (missing
+    trailing entries: not sharded)."""
+    dims = [tuple(a for a in e.split("+") if a) for e in text.split("|")]
+    return tuple(dims[:ndim]) + ((),) * (ndim - len(dims))
+
+
+def constrain(x: torch.Tensor, spec: tuple | None) -> torch.Tensor:
+    """``x`` laid out by ``spec`` (one entry a dimension, trailing ones may
+    be left out): ``x`` itself when ``spec`` is ``None``, so that no op is
+    emitted at all, else ``x`` through ``repro_torch::constrain``."""
+    if spec is None:
+        return x
+    return torch.ops.repro_torch.constrain(x, encode_spec(spec))
 
 
 def logical_to_spec(axes: tuple[str | None, ...],
@@ -152,9 +227,10 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, inner_spec: tuple | None = None
+           ) -> torch.Tensor:
     h = silu(torch.matmul(x, w_gate)) * torch.matmul(x, w_up)
-    return torch.matmul(h, w_down)
+    return torch.matmul(constrain(h, inner_spec), w_down)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

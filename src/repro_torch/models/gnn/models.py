@@ -20,7 +20,10 @@ Every config shares the batch contract: node features ``x [N, F]``,
 padding masks for static shapes.  Python ints in a batch (``n_graphs``)
 stay ints.  The configs keep the reference's fields, ``node_spec``,
 ``edge_spec`` and ``gather_chunks`` included, so they compare equal to the
-reference's; the two specs name mesh axes and have no effect on one card.
+reference's; the two specs name the mesh axes of node and edge tensors'
+first dimension, which :func:`_c` constrains where the reference does
+(``models/common.py::constrain``, read by the dry run's sharding pass; a
+``None`` spec emits nothing, and on one card a constraint is a view).
 Each MeshGraphNet layer and DimeNet block is a non-reentrant
 ``torch.utils.checkpoint``, as the reference ``jax.checkpoint``-s them.
 """
@@ -34,29 +37,40 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..common import ParamDef, cross_entropy, seg_sum
+from ..common import ParamDef, constrain, cross_entropy, seg_sum
 
 
-def _cg_impl(x: torch.Tensor, idx: torch.Tensor, n_chunks: int
-             ) -> torch.Tensor:
+def _c(x: torch.Tensor, spec: tuple | None) -> torch.Tensor:
+    """The reference's optional sharding constraint: ``spec`` names the
+    first dimension's mesh axes (``()``: explicitly replicated)."""
+    if spec is None:
+        return x
+    return constrain(x, (spec or None,))
+
+
+def _cg_impl(x: torch.Tensor, idx: torch.Tensor, n_chunks: int,
+             out_spec: tuple | None = None) -> torch.Tensor:
     """``x[idx]`` chunk by chunk of ``x``'s rows (padded to a multiple of
-    ``n_chunks``): each chunk's hits are gathered and added in."""
+    ``n_chunks``): each chunk's hits are gathered and added in, each under
+    ``out_spec``."""
     N, D = x.shape
     C = -(-N // n_chunks)
     Npad = C * n_chunks
     if Npad != N:
         x = F.pad(x, (0, 0, 0, Npad - N))
-    acc = torch.zeros((idx.shape[0], D), dtype=x.dtype, device=x.device)
+    acc = _c(torch.zeros((idx.shape[0], D), dtype=x.dtype, device=x.device),
+             out_spec)
     for c in range(n_chunks):
         local = idx - c * C
         hit = (local >= 0) & (local < C)
-        vals = x[c * C:(c + 1) * C].index_select(0, local.clamp(0, C - 1))
+        vals = _c(x[c * C:(c + 1) * C].index_select(
+            0, local.clamp(0, C - 1)), out_spec)
         acc = acc + torch.where(hit[:, None], vals, 0)
     return acc
 
 
 def _css_impl(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
-              n_chunks: int) -> torch.Tensor:
+              n_chunks: int, out_spec: tuple | None = None) -> torch.Tensor:
     """segment sum in destination chunks of ``ceil(num_segments /
     n_chunks)`` segments, concatenated and cut back to ``num_segments``."""
     C = -(-num_segments // n_chunks)
@@ -66,7 +80,7 @@ def _css_impl(data: torch.Tensor, ids: torch.Tensor, num_segments: int,
         hit = (local >= 0) & (local < C)
         parts.append(seg_sum(torch.where(hit[:, None], data, 0),
                              local.clamp(0, C - 1), C))
-    return torch.cat(parts)[:num_segments]
+    return _c(torch.cat(parts)[:num_segments], out_spec)
 
 
 class ChunkedGather(torch.autograd.Function):
@@ -75,15 +89,15 @@ class ChunkedGather(torch.autograd.Function):
     are saved (the reference's ``chunked_gather`` ``custom_vjp``)."""
 
     @staticmethod
-    def forward(ctx, x, idx, n_chunks: int):
+    def forward(ctx, x, idx, n_chunks: int, out_spec=None):
         ctx.save_for_backward(idx)
         ctx.N, ctx.n_chunks = x.shape[0], n_chunks
-        return _cg_impl(x, idx, n_chunks)
+        return _cg_impl(x, idx, n_chunks, out_spec)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return _css_impl(g, idx, ctx.N, ctx.n_chunks), None, None
+        return _css_impl(g, idx, ctx.N, ctx.n_chunks), None, None, None
 
 
 class ChunkedSegmentSum(torch.autograd.Function):
@@ -92,32 +106,35 @@ class ChunkedSegmentSum(torch.autograd.Function):
     ``chunked_segment_sum`` ``custom_vjp``)."""
 
     @staticmethod
-    def forward(ctx, data, ids, num_segments: int, n_chunks: int):
+    def forward(ctx, data, ids, num_segments: int, n_chunks: int,
+                out_spec=None):
         ctx.save_for_backward(ids)
         ctx.n_chunks = n_chunks
-        return _css_impl(data, ids, num_segments, n_chunks)
+        return _css_impl(data, ids, num_segments, n_chunks, out_spec)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return _cg_impl(g, ids, ctx.n_chunks), None, None, None
+        return _cg_impl(g, ids, ctx.n_chunks), None, None, None, None
 
 
-def chunked_gather(x: torch.Tensor, idx: torch.Tensor, n_chunks: int
-                   ) -> torch.Tensor:
-    return ChunkedGather.apply(x, idx, n_chunks)
+def chunked_gather(x: torch.Tensor, idx: torch.Tensor, n_chunks: int,
+                   out_spec: tuple | None = None) -> torch.Tensor:
+    return ChunkedGather.apply(x, idx, n_chunks, out_spec)
 
 
 def chunked_segment_sum(data: torch.Tensor, ids: torch.Tensor,
-                        num_segments: int, n_chunks: int) -> torch.Tensor:
-    return ChunkedSegmentSum.apply(data, ids, num_segments, n_chunks)
+                        num_segments: int, n_chunks: int,
+                        out_spec: tuple | None = None) -> torch.Tensor:
+    return ChunkedSegmentSum.apply(data, ids, num_segments, n_chunks,
+                                   out_spec)
 
 
-def _gather(x: torch.Tensor, idx: torch.Tensor, n_chunks: int
-            ) -> torch.Tensor:
+def _gather(x: torch.Tensor, idx: torch.Tensor, n_chunks: int,
+            spec: tuple | None = None) -> torch.Tensor:
     if n_chunks and n_chunks > 1:
-        return chunked_gather(x, idx, n_chunks)
-    return x.index_select(0, idx)
+        return chunked_gather(x, idx, n_chunks, spec)
+    return _c(x.index_select(0, idx), spec)
 
 
 def _mlp_defs(name: str, dims: list[int], dt=torch.float32) -> dict:
@@ -182,11 +199,12 @@ def _gcn_forward(p, batch, cfg: GCNConfig):
     norm_src = norm.index_select(0, src)[:, None]
     for i in range(cfg.n_layers):
         h = x @ p[f"w{i}"]
-        m = _gather(h, src, cfg.gather_chunks) * norm_src
+        m = _gather(h, src, cfg.gather_chunks, cfg.edge_spec) * norm_src
         if emask is not None:
             m = m * emask[:, None]
-        agg = seg_sum(m, dst, N) * norm[:, None] + h * norm[:, None] ** 2
-        x = agg + p[f"b{i}"]
+        agg = _c(seg_sum(m, dst, N), cfg.node_spec) * norm[:, None] \
+            + h * norm[:, None] ** 2
+        x = _c(agg + p[f"b{i}"], cfg.node_spec)
         if i < cfg.n_layers - 1:
             x = torch.relu(x)
     return x
@@ -227,13 +245,13 @@ def _gin_forward(p, batch, cfg: GINConfig):
     N = x.shape[0]
     emask = batch.get("edge_mask")
     for l in range(cfg.n_layers):
-        m = _gather(x, src, cfg.gather_chunks)
+        m = _gather(x, src, cfg.gather_chunks, cfg.edge_spec)
         if emask is not None:
             m = m * emask[:, None]
-        agg = seg_sum(m, dst, N)
+        agg = _c(seg_sum(m, dst, N), cfg.node_spec)
         x = _mlp(p, f"mlp{l}", (1.0 + p["eps"][l]) * x + agg,
                  cfg.mlp_layers, norm=True)
-        x = torch.relu(x)
+        x = _c(torch.relu(x), cfg.node_spec)
     if "graph_ids" in batch:  # graph-level readout (molecule batches)
         G = batch["n_graphs"]
         nm = batch.get("node_mask")
@@ -279,20 +297,25 @@ def _mgn_forward(p, batch, cfg: MeshGraphNetConfig):
     src, dst = batch["edge_index"]
     N = batch["x"].shape[0]
     m = cfg.mlp_layers
-    h_n = _mlp(p, "enc_node", batch["x"], m, norm=True).to(cfg.act_dtype)
-    h_e = _mlp(p, "enc_edge", batch["edge_attr"], m, norm=True).to(
-        cfg.act_dtype)
+    h_n = _c(_mlp(p, "enc_node", batch["x"], m, norm=True),
+             cfg.node_spec).to(cfg.act_dtype)
+    h_e = _c(_mlp(p, "enc_edge", batch["edge_attr"], m, norm=True),
+             cfg.edge_spec).to(cfg.act_dtype)
 
     def mp_layer(l, h_n, h_e):
-        e_in = torch.cat([h_e, _gather(h_n, src, cfg.gather_chunks),
-                          _gather(h_n, dst, cfg.gather_chunks)], dim=-1)
-        h_e = h_e + _mlp(p, f"edge{l}", e_in, m, norm=True)
+        e_in = torch.cat(
+            [h_e, _gather(h_n, src, cfg.gather_chunks, cfg.edge_spec),
+             _gather(h_n, dst, cfg.gather_chunks, cfg.edge_spec)], dim=-1)
+        h_e = _c(h_e + _mlp(p, f"edge{l}", e_in, m, norm=True),
+                 cfg.edge_spec)
         if cfg.gather_chunks:
-            agg = chunked_segment_sum(h_e, dst, N, cfg.gather_chunks)
+            agg = chunked_segment_sum(h_e, dst, N, cfg.gather_chunks,
+                                      cfg.node_spec)
         else:
-            agg = seg_sum(h_e, dst, N)
+            agg = _c(seg_sum(h_e, dst, N), cfg.node_spec)
         n_in = torch.cat([h_n, agg], dim=-1)
-        h_n = h_n + _mlp(p, f"node{l}", n_in, m, norm=True)
+        h_n = _c(h_n + _mlp(p, f"node{l}", n_in, m, norm=True),
+                 cfg.node_spec)
         return h_n, h_e
 
     # recompute each message-passing layer in the backward instead of
@@ -393,9 +416,11 @@ def _dimenet_forward(p, batch, cfg: DimeNetConfig):
     dist = torch.linalg.vector_norm(vec + 1e-9, dim=-1)
     rbf = _bessel_rbf(dist, cfg.n_radial, cfg.cutoff)      # [E, R]
     h_z = p["emb_z"].index_select(0, z)
-    m = torch.cat([h_z.index_select(0, src), h_z.index_select(0, dst),
+    m = torch.cat([_c(h_z.index_select(0, src), cfg.edge_spec),
+                   _c(h_z.index_select(0, dst), cfg.edge_spec),
                    rbf @ p["rbf_w"]], dim=-1)
-    m = F.silu(_mlp(p, "edge_emb", m, 1)).to(cfg.act_dtype)  # [E, h]
+    m = _c(F.silu(_mlp(p, "edge_emb", m, 1)),
+           cfg.edge_spec).to(cfg.act_dtype)                  # [E, h]
     # triplet geometry: angle between edge ji and edge kj at vertex j
     cosang = _wedge_cos(vec.index_select(0, t_ji), -vec.index_select(0, t_kj))
     angle = torch.arccos(torch.clamp(cosang, -1 + 1e-6, 1 - 1e-6))
@@ -406,22 +431,25 @@ def _dimenet_forward(p, batch, cfg: DimeNetConfig):
     gids = batch.get("graph_ids")
     if gids is None:
         gids = torch.zeros(N, dtype=torch.int32, device=z.device)
+    tspec = cfg.edge_spec   # triplets partitioned like edges
 
     def block(b, m, out_energy):
-        mk = F.silu(_mlp(p, f"msg{b}", m, 2))
-        w = sbf @ p["sbf_w"]                                # [T, n_bilinear]
-        inter = _bilinear(_gather(mk, t_kj, cfg.gather_chunks),
-                          p[f"bil{b}"], w)
+        mk = _c(F.silu(_mlp(p, f"msg{b}", m, 2)), cfg.edge_spec)
+        w = _c(sbf @ p["sbf_w"], tspec)                     # [T, n_bilinear]
+        inter = _c(_bilinear(_gather(mk, t_kj, cfg.gather_chunks, tspec),
+                             p[f"bil{b}"], w), tspec)
         if cfg.gather_chunks:
-            agg = chunked_segment_sum(inter, t_ji, E, cfg.gather_chunks)
+            agg = chunked_segment_sum(inter, t_ji, E, cfg.gather_chunks,
+                                      cfg.edge_spec)
         else:
-            agg = seg_sum(inter, t_ji, E)
-        m = m + F.silu(_mlp(p, f"upd{b}", agg, 1))
+            agg = _c(seg_sum(inter, t_ji, E), cfg.edge_spec)
+        m = _c(m + F.silu(_mlp(p, f"upd{b}", agg, 1)), cfg.edge_spec)
         mo = F.silu(_mlp(p, f"out{b}", m, 1))
         if cfg.gather_chunks:
-            node_out = chunked_segment_sum(mo, dst, N, cfg.gather_chunks)
+            node_out = chunked_segment_sum(mo, dst, N, cfg.gather_chunks,
+                                           cfg.node_spec)
         else:
-            node_out = seg_sum(mo, dst, N)
+            node_out = _c(seg_sum(mo, dst, N), cfg.node_spec)
         return m, out_energy + seg_sum(node_out, gids, G)
 
     for b in range(cfg.n_blocks):

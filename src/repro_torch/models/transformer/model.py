@@ -41,8 +41,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...kernels.flash_attention import attention
 from ...kernels.policy import resolve_device
-from ..common import (ParamDef, apply_rope, cross_entropy, rmsnorm, silu,
-                      softcap, swiglu)
+from ..common import (ParamDef, apply_rope, constrain, cross_entropy,
+                      rmsnorm, silu, softcap, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +91,11 @@ class TransformerConfig:
     mtp: bool = False                        # deepseek multi-token prediction
     dtype: Any = torch.bfloat16
     remat: bool = True                       # recompute layers in training
+    # mesh layout of the activations (the dry run's cells set it): each
+    # layer's output, and through its first entry the FFN's inner
+    # activations, the MoE groups and the logits (models/common.py::
+    # constrain); None emits no constraint
+    act_spec: tuple | None = None
 
     @property
     def q_dim(self) -> int:
@@ -398,28 +403,41 @@ def _moe_ffn(p: dict, i: int, x: torch.Tensor,
     E, K = moe.n_experts, moe.top_k
     G = moe.n_groups if B % max(moe.n_groups, 1) == 0 else 1
     T = (B // G) * S
-    xf = x.reshape(G, T, d)
+    bax = cfg.act_spec[0] if cfg.act_spec is not None else None
+
+    def gc(t, *rest):       # groups (dim 0) on the batch axes
+        return t if bax is None else constrain(t, (bax, *rest))
+
+    xf = gc(x.reshape(G, T, d))
     # an f32 product of the bf16-cast router (the reference's
     # preferred_element_type=f32): a bf16 product would round the logits
-    logits = torch.matmul(xf.float(), p["router"][i].to(x.dtype).float())
+    logits = gc(torch.matmul(xf.float(),
+                             p["router"][i].to(x.dtype).float()))
     ids, w = _route(logits, p["router_bias"][i] if "router_bias" in p
                     else None, moe)
     C = int(math.ceil(T * K * moe.capacity_factor / E))
     buf, se, slot_c, tok, comb_w = _dispatch_group(xf, ids, w, E, K, C)
-    g = torch.matmul(buf, p["e_gate"][i])                # [G, E, C, de]
-    u = torch.matmul(buf, p["e_up"][i])
+    buf = gc(buf, "model")
+    g = gc(torch.matmul(buf, p["e_gate"][i]), "model")   # [G, E, C, de]
+    u = gc(torch.matmul(buf, p["e_up"][i]), "model")
     del buf
-    h = torch.matmul(silu(g) * u, p["e_down"][i])        # [G, E, C, d]
+    h = gc(torch.matmul(silu(g) * u, p["e_down"][i]), "model")
     del g, u
-    out = _combine_group(h, se, slot_c, tok, comb_w, T).reshape(B, S, d)
+    out = gc(_combine_group(h, se, slot_c, tok, comb_w, T)).reshape(B, S, d)
     me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
     flat = ids.reshape(-1)
     ce = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
         0, flat, torch.ones_like(flat)).float() / (G * T * K)
     aux = E * torch.sum(me * ce)
     if moe.n_shared:
-        out = out + swiglu(x, p["s_gate"][i], p["s_up"][i], p["s_down"][i])
+        out = out + swiglu(x, p["s_gate"][i], p["s_up"][i], p["s_down"][i],
+                           _inner_spec(cfg))
     return out, aux
+
+
+def _inner_spec(cfg: TransformerConfig) -> tuple | None:
+    """The FFN's inner activations ``[B, S, f]``: f on ``model``."""
+    return None if cfg.act_spec is None else (cfg.act_spec[0], None, "model")
 
 
 def _layer(kind: str, p: dict, i: int, x: torch.Tensor,
@@ -434,22 +452,24 @@ def _layer(kind: str, p: dict, i: int, x: torch.Tensor,
     y = rmsnorm(x, p["ffn_norm"][i], cfg.norm_eps, cfg.rmsnorm_plus_one)
     aux = 0.0
     if kind == "dense":
-        f = swiglu(y, p["w_gate"][i], p["w_up"][i], p["w_down"][i])
+        f = swiglu(y, p["w_gate"][i], p["w_up"][i], p["w_down"][i],
+                   _inner_spec(cfg))
     elif kind == "moe":
         f, aux = _moe_ffn(p, i, y, cfg)
     else:                       # hybrid: dense residual FFN ∥ MoE (arctic)
         f, aux = _moe_ffn(p, i, y, cfg)
-        f = swiglu(y, p["w_gate"][i], p["w_up"][i], p["w_down"][i]) + f
+        f = swiglu(y, p["w_gate"][i], p["w_up"][i], p["w_down"][i],
+                   _inner_spec(cfg)) + f
     return x + f, aux, new_kv
 
 
 def _remat_body(kind: str, p: dict, i: int, x: torch.Tensor,
                 cfg: TransformerConfig, positions: torch.Tensor,
                 window: int | None, theta: float):
-    """:func:`_layer` without a cache, as ``(x, aux)``: what a
-    ``checkpoint``-ed training layer keeps."""
+    """:func:`_layer` without a cache, its output under ``act_spec``, as
+    ``(x, aux)``: what a ``checkpoint``-ed training layer keeps."""
     x, aux, _ = _layer(kind, p, i, x, cfg, positions, window, theta)
-    return x, aux
+    return constrain(x, cfg.act_spec), aux
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +522,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
                 cache_kv = (cache[gi][0][i], cache[gi][1][i], cache_len)
             x, aux, (k, v) = _layer(kind, g, i, x, cfg, positions, w,
                                     thetas[off + i], cache_kv)
+            x = constrain(x, cfg.act_spec)
             aux_total = aux_total + aux
             if return_cache and cache is None:
                 ks.append(k)
@@ -513,8 +534,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
         off += L
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, cfg.rmsnorm_plus_one)
     w = params["embed"].t() if cfg.tied_embeddings else params["lm_head"]
-    logits = softcap(torch.matmul(x[:, -1:] if last_only else x,
-                                  w.to(cfg.dtype)), cfg.logit_softcap)
+    logits = torch.matmul(x[:, -1:] if last_only else x, w.to(cfg.dtype))
+    if cfg.act_spec is not None:
+        logits = constrain(logits, (cfg.act_spec[0], None, "model"))
+    logits = softcap(logits, cfg.logit_softcap)
     caches = caches_out if (return_cache or cache is not None) else None
     return logits, aux_total, caches, x
 

@@ -1,7 +1,7 @@
 """The port's package boundary and its device default.
 
-* Every ``repro_torch`` module, ``chip_smoke.py`` and
-  ``examples/pt_temporal_gnn_train.py`` import in a fresh interpreter
+* Every ``repro_torch`` module, ``chip_smoke.py`` and the four
+  ``examples/pt_*.py`` import in a fresh interpreter
   whose import system refuses ``jax`` and ``repro`` (exactly, or as a
   dotted prefix — ``repro_torch`` itself stays importable).
 * Entry points called without ``device=`` run on the card; without one
@@ -56,10 +56,11 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-spec = importlib.util.spec_from_file_location(
-    "pt_temporal_gnn_train",
-    sys.argv[1] + "/examples/pt_temporal_gnn_train.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for example in ("pt_temporal_gnn_train", "pt_quickstart",
+                "pt_evolution_analysis", "pt_snapshot_server"):
+    spec = importlib.util.spec_from_file_location(
+        example, sys.argv[1] + "/examples/" + example + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 assert not loaded, loaded

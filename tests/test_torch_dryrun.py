@@ -26,10 +26,12 @@ dispatch.
   trace at full depth (their decode cells: one MLA or decode route a
   layer).
 * The live-bytes tracker's peak on small programs built by hand.
-* ``run_cell``'s keys for one cell of each family, and the CLI's resume.
+* ``run_cell``'s keys for one cell of each family (a finite collective
+  term from the sharding pass, no unmodeled op), and the CLI's resume.
 """
 import dataclasses
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -403,8 +405,14 @@ def test_run_cell_keys(arch, shape, chips):
     assert m["live_bytes_per_device"] == pytest.approx(
         m["argument_bytes_per_device"] +
         (m["peak_bytes_whole"] - m["argument_bytes_whole"]) / chips)
-    assert r["collective_s"] is None and r["bottleneck"] in ("compute_s",
-                                                            "memory_s")
+    assert math.isfinite(r["collective_s"]) and r["collective_s"] >= 0
+    assert r["collective_s"] == rec["counted"]["collective_bytes"] / \
+        dryrun.LINK_BW
+    assert rec["counted"]["collective_bytes"] == sum(
+        rec["counted"]["collectives"].values())
+    assert rec["collectives_unmodeled"] == {}
+    assert r["bottleneck"] == max(("compute_s", "memory_s", "collective_s"),
+                                  key=r.get)
     assert r["compute_s"] > 0 and r["memory_s"] > 0
     assert rec["fits_80gb"] is True
     json.dumps(rec)
@@ -433,3 +441,37 @@ def test_cli_resumes(tmp_path, monkeypatch, capsys):
     dryrun.main()
     again = json.loads(out.read_text())
     assert all(r["status"] == "error" for r in again.values())
+
+
+def test_cli_recomputes_records_without_the_collective_term(tmp_path,
+                                                           monkeypatch):
+    """A record written before the collective term (``collective_s:
+    null``, no ``collectives_unmodeled``) is traced again; a current one
+    and a skipped one are kept."""
+    out = tmp_path / "results.json"
+    argv = ["dryrun", "--arch", "din", "--shape", "serve_p99", "--out",
+            str(out)]
+    monkeypatch.setattr("sys.argv", argv)
+    dryrun.main()
+    first = json.loads(out.read_text())
+    old = dict(first["din|serve_p99|single"])
+    del old["collectives_unmodeled"]
+    old["roofline"] = {**old["roofline"], "collective_s": None}
+    assert not dryrun.done(old)
+    assert dryrun.done(first["din|serve_p99|multi"])
+    assert dryrun.done({"status": "skipped"})
+    assert not dryrun.done({"status": "error"}) and not dryrun.done(None)
+    out.write_text(json.dumps({**first, "din|serve_p99|single": old}))
+    traced = []
+    run_cell = dryrun.run_cell
+
+    def note(arch, shape, multi_pod, **kw):
+        traced.append((arch, shape, multi_pod))
+        return run_cell(arch, shape, multi_pod, **kw)
+
+    monkeypatch.setattr(dryrun, "run_cell", note)
+    dryrun.main()
+    assert traced == [("din", "serve_p99", False)]
+    again = json.loads(out.read_text())
+    assert dryrun.done(again["din|serve_p99|single"])
+    assert again["din|serve_p99|multi"] == first["din|serve_p99|multi"]

@@ -412,8 +412,8 @@ def test_registry_lookups_match_reference():
     """``ARCH_IDS`` in the reference's order; ``family_of``,
     ``shapes_for``, ``get_arch`` and ``reduced_config`` equal to the
     reference's for every entry (configs field by field, dtypes by
-    name, the GNN configs' mesh specs and ``gather_chunks`` too; the LM
-    config's ``act_spec`` is not ported); the shape tables equal."""
+    name, the GNN configs' mesh specs and ``gather_chunks`` too, the LM
+    config's ``act_spec`` too); the shape tables equal."""
     import repro.configs.registry as jreg
     import repro.configs.shapes as jshapes
     import repro_torch.configs.registry as reg
@@ -441,10 +441,7 @@ def test_registry_lookups_match_reference():
         for a, b in ((cfg, jcfg), (reg.reduced_config(arch),
                                    jreg.reduced_config(arch))):
             a, b = fields(a), fields(b)
-            # the LM config's mesh spec has no counterpart on one card
-            extra = {"act_spec"} if reg.family_of(arch) == "lm" else set()
-            assert b.keys() - a.keys() == extra, arch
-            assert a == {k: v for k, v in b.items() if k not in extra}, arch
+            assert a == b, arch
     for name in ("GNN_SHAPES", "RECSYS_SHAPES", "LM_SHAPES"):
         a, b = getattr(shapes, name), getattr(jshapes, name)
         assert {k: dataclasses.asdict(v) for k, v in a.items()} == \
