@@ -1,0 +1,33 @@
+"""Device-to-host time a request: the program's ``readback`` spans
+(``transfer.to_host``: the landed masks, the live counts, the weighted
+partials and the degrees, each with the host's wait for the device).
+
+Read from the program's ``span_ns.readback`` counter (nanoseconds inside
+its ``readback`` spans, which record while a profiler window does) at the
+traced window's start and end, over the window's requests.  Nothing where
+the program keeps no such counter, where no such span ran, or where its
+span buffer overflowed (``spans_dropped`` moved)."""
+
+SOURCE = "program_span"
+
+
+def _counter(name):
+    def value(ctx):
+        try:
+            from repro_torch import obs
+        except ImportError:         # a program that keeps no such counters
+            return float("nan")
+        return obs.counters().get(name, 0)
+    return value
+
+
+COUNTERS = {"span_ns.readback": _counter("span_ns.readback"),
+            "spans_dropped": _counter("spans_dropped")}
+
+
+def read(trace):
+    start, end = trace.counters["span_ns.readback"]
+    dropped = trace.counters["spans_dropped"]
+    if not trace.requests or not end > start or dropped[0] != dropped[1]:
+        return None
+    return (end - start) / trace.requests / 1e6

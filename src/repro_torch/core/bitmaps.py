@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..transfer import to_host
+
 WORD_BITS = 32
 
 
@@ -73,12 +75,12 @@ def np_fit_words(words: np.ndarray, W: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# torch -> numpy word view (numpy -> torch: ``runtime.staging.host_tensor``)
+# torch -> numpy word view (numpy -> torch: ``transfer.host_tensor``)
 # ---------------------------------------------------------------------------
 
 def to_numpy_words(words: torch.Tensor) -> np.ndarray:
     """int32 tensor -> uint32 words (same bits), on the host."""
-    return words.detach().cpu().numpy().view(np.uint32)
+    return to_host(words).view(np.uint32)
 
 
 def _words_from_int64(w: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 
+from .. import obs
 from ..storage import columnar as col
 from ..storage.kv import KVStore
 from . import diff_functions
@@ -56,6 +57,12 @@ SUPERROOT = 0
 # stored == logical and the model degrades to the paper's bytes-fetched.
 COST_ALPHA_STORED = 1.0
 COST_BETA_DECODE = 0.15
+
+
+def _blob_bytes(blobs: list) -> int:
+    """Payload bytes of one ``mget``'s blobs (``None``: an absent key)."""
+    return sum(len(b) for b in blobs if b is not None)
+
 
 # ---------------------------------------------------------------------------
 # skeleton
@@ -806,17 +813,21 @@ class DeltaGraph:
 
     def plan_singlepoint(self, t: int, options: AttrOptions = NO_ATTRS,
                          use_current: bool = True) -> Plan:
-        virtuals = {("t", t): self._virtual_edges(t, options)}
-        sources = self._sources(use_current, options)
-        starts = {n: 0.0 for n, _ in sources}
-        dist, prev = self._dijkstra(starts, options, virtuals, use_current)
-        target = ("t", t)
-        if target not in dist:
-            raise RuntimeError(f"no retrieval path for t={t}")
-        b = PlanBuilder()
-        self._emit_chain(b, prev, dict(sources), target)
-        b.target(t, target)
-        return b.build()
+        with obs.span("plan", t=t) as sp:
+            virtuals = {("t", t): self._virtual_edges(t, options)}
+            sources = self._sources(use_current, options)
+            starts = {n: 0.0 for n, _ in sources}
+            dist, prev = self._dijkstra(starts, options, virtuals,
+                                        use_current)
+            target = ("t", t)
+            if target not in dist:
+                raise RuntimeError(f"no retrieval path for t={t}")
+            b = PlanBuilder()
+            self._emit_chain(b, prev, dict(sources), target)
+            b.target(t, target)
+            plan = b.build()
+            sp.note(steps=len(plan.steps))
+            return plan
 
     def plan_node(self, nid: int, options: AttrOptions = NO_ATTRS) -> Plan:
         """Plan retrieval of a *skeleton* node's (virtual) graph — used for
@@ -919,8 +930,10 @@ class DeltaGraph:
     def _fetch_delta(self, pid: int, options: AttrOptions,
                      parts: tuple[int, ...] | None = None) -> Delta:
         keys, na_keys, ea_keys = self._delta_keys(pid, options, parts)
-        blobs = self._mget(keys + na_keys + ea_keys)
-        return self._decode_delta(blobs, len(keys), len(na_keys))
+        with obs.span("fetch", pid=pid) as sp:
+            blobs = self._mget(keys + na_keys + ea_keys)
+            sp.note(bytes=_blob_bytes(blobs))
+            return self._decode_delta(blobs, len(keys), len(na_keys))
 
     def _decode_delta(self, blobs: list, n_struct: int, n_na: int) -> Delta:
         structs = [col.decode_delta_struct(b) for b in blobs[:n_struct]]
@@ -959,7 +972,10 @@ class DeltaGraph:
                      parts: tuple[int, ...] | None = None
                      ) -> dict[str, dict[str, np.ndarray]]:
         keys = self._elist_keys(pid, options, transient, parts)
-        return self._decode_elist(keys, self._mget(keys))
+        with obs.span("fetch", pid=pid) as sp:
+            blobs = self._mget(keys)
+            sp.note(bytes=_blob_bytes(blobs))
+            return self._decode_elist(keys, blobs)
 
     @staticmethod
     def _decode_elist(keys: list, blobs: list

@@ -4,8 +4,8 @@ Each wrapper dispatches by the device of its tensors
 (:mod:`repro_torch.kernels.policy`): CPU tensors go to the plain versions
 in ``ref.py``, CUDA tensors to the kernels in ``csrc/delta_apply.cu``
 (built at first use).  Words are ``int32`` views of the packed ``uint32``
-words.  :data:`launches` counts kernel launches per kernel, incremented
-where the kernel is launched and nowhere else.
+words.  Each launch adds one to its kernel's ``launch.<kernel>`` counter
+(:mod:`repro_torch.obs`), where the kernel is launched and nowhere else.
 
 Unlike the JAX wrappers, nothing is padded to shape buckets: that bucketing
 only kept JAX's compile cache small.  The fused kernel masks the ragged
@@ -20,11 +20,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import obs
+from ...transfer import to_host
 from .. import _build
 from ..policy import use_kernel
 from .ref import delta_apply_chain_ref, delta_apply_fused_ref, pad_weights
 
-launches = {"delta_apply_chain": 0, "delta_apply_fused": 0}
+KERNELS = ("delta_apply_chain", "delta_apply_fused")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -71,7 +73,7 @@ def _chain_kernel(bases, adds, dels) -> torch.Tensor:
         _build.launch(_load(), "delta_apply_chain_launch", bases,
                       bases.data_ptr(), adds.data_ptr(), dels.data_ptr(),
                       out.data_ptr(), B, K, W)
-        launches["delta_apply_chain"] += 1
+        obs.count("launch.delta_apply_chain")
     return out
 
 
@@ -147,12 +149,12 @@ class FusedOut(NamedTuple):
 
     def live_count(self):
         """Total live elements (int; summed over the trailing axis)."""
-        return self.pop.to(torch.int64).sum(-1).cpu().numpy()
+        return to_host(self.pop.to(torch.int64).sum(-1))
 
     def weighted_total(self):
         """Σ weights over live slots, f32 (PageRank push mass), summed on
         the host in the reference's order."""
-        return self.accw.cpu().numpy().sum(axis=-1, dtype=np.float32)
+        return to_host(self.accw).sum(axis=-1, dtype=np.float32)
 
 
 def _fused_plane(bases, adds, dels, weights, block_w, emit_live):
@@ -190,7 +192,7 @@ def _fused_kernel(bases, adds, dels, weights, block_w, emit_live):
     if B and W:
         _build.launch(_load(), "delta_apply_fused_launch", bases, *ptrs,
                       B, K, W, block_w)
-        launches["delta_apply_fused"] += 1
+        obs.count("launch.delta_apply_fused")
     return outs
 
 
@@ -239,6 +241,17 @@ def delta_apply_fused_pair(base_n: torch.Tensor, adds_n: torch.Tensor,
     ``weights_n``, and the edge plane over ``W_e`` words (same ``K``) ->
     ``(node, edge)`` :class:`FusedOut`, the same as two
     :func:`delta_apply_fused` calls."""
+    with obs.span("launch.delta_apply_fused", K=adds_n.shape[-2],
+                  W_n=base_n.shape[-1], W_e=base_e.shape[-1],
+                  weights_n=0 if weights_n is None else weights_n.numel(),
+                  weights_e=0 if weights_e is None else weights_e.numel(),
+                  live=emit_live):
+        return _fused_pair(base_n, adds_n, dels_n, base_e, adds_e, dels_e,
+                           weights_n, weights_e, block_w, emit_live)
+
+
+def _fused_pair(base_n, adds_n, dels_n, base_e, adds_e, dels_e, weights_n,
+                weights_e, block_w, emit_live) -> tuple[FusedOut, FusedOut]:
     if not use_kernel(base_n, adds_n, dels_n, weights_n, base_e, adds_e,
                       dels_e, weights_e):
         return tuple(FusedOut(*delta_apply_fused_ref(
@@ -258,5 +271,5 @@ def delta_apply_fused_pair(base_n: torch.Tensor, adds_n: torch.Tensor,
     if W_n or W_e:
         _build.launch(_load(), "delta_apply_fused_pair_launch", base_n,
                       *ptrs_n, W_n, *ptrs_e, W_e, 1, K, block_w)
-        launches["delta_apply_fused"] += 1
+        obs.count("launch.delta_apply_fused")
     return FusedOut(*outs_n), FusedOut(*outs_e)

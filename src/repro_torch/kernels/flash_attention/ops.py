@@ -20,7 +20,8 @@ nothing is padded on the host.  ``csrc/flash_attention.cu`` and
 ``csrc/flash_mla.cu``, the first designs, are no route of
 :func:`attention`: :func:`_attention_mma`, :func:`_attention_simt` and
 :func:`_mla_mma` keep their kernels callable as yardsticks.
-:data:`launches` counts launches where they are made and nowhere else:
+Launches are counted where they are made and nowhere else, each in the
+``launch.<kernel>`` counter of :mod:`repro_torch.obs` (:data:`KERNELS`):
 ``flash_attention`` every kernel call of :func:`attention`,
 ``flash_attention_prefill``, ``flash_attention_prefill_f32``,
 ``flash_attention_decode`` and ``flash_attention_mla`` those that took
@@ -57,14 +58,15 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ... import obs
 from .. import _build
 from ..policy import on_meta, report_meta_work, use_kernel
 from .ref import attention_ref, attention_ref_stats
 
-launches = {"flash_attention": 0, "flash_attention_prefill": 0,
-            "flash_attention_prefill_f32": 0, "flash_attention_decode": 0,
-            "flash_attention_mla": 0, "flash_attention_prefill_stats": 0,
-            "flash_attention_prefill_f32_stats": 0}
+KERNELS = ("flash_attention", "flash_attention_prefill",
+           "flash_attention_prefill_f32", "flash_attention_decode",
+           "flash_attention_mla", "flash_attention_prefill_stats",
+           "flash_attention_prefill_f32_stats")
 
 # The backward's key chunk: the reference's ``block_k``
 # (``repro/kernels/flash_attention/ops.py::_chunked_gqa_attention``).
@@ -444,7 +446,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch = {"flash_decode": _decode, "flash_mla": _mla}.get(source,
                                                               _prefill)
     out = launch(q, k, v, sizes, flags)
-    launches["flash_attention"] += 1
+    obs.count("launch.flash_attention")
     return out if out.shape[-1] == dv else out[..., :dv]
 
 
@@ -562,10 +564,10 @@ def _prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
             l.data_ptr() if stats else None,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, fn, err)
-    launches[counter] += 1
+    obs.count(f"launch.{counter}")
     if not stats:
         return out
-    launches[f"{counter}_stats"] += 1
+    obs.count(f"launch.{counter}_stats")
     return out, m, l
 
 
@@ -592,7 +594,7 @@ def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
             _DTYPES[q.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "flash_decode", err)
-    launches["flash_attention_decode"] += 1
+    obs.count("launch.flash_attention_decode")
     return out
 
 
@@ -647,7 +649,7 @@ def _mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sizes: tuple,
             plan.tiles, plan.n_splits, int(v_in_k),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "flash_mla_wgmma", err)
-    launches["flash_attention_mla"] += 1
+    obs.count("launch.flash_attention_mla")
     return out
 
 
@@ -725,7 +727,7 @@ def attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"no prefill kernel with statistics past a head "
                          f"dim of {MAX_HEAD_DIM}: got D={D}, Dv={Dv}")
     out, m, l = _prefill(q, k, v, sizes, flags, stats=True)
-    launches["flash_attention"] += 1
+    obs.count("launch.flash_attention")
     return (out if out.shape[-1] == dv else out[..., :dv]), m, l
 
 

@@ -2,9 +2,9 @@
 
 :func:`segment_sum_bucketed` dispatches by device
 (:mod:`repro_torch.kernels.policy`): CPU tensors go to the plain version in
-``ref.py``, CUDA tensors to ``csrc/segment_sum.cu``.  :data:`launches`
-counts kernel launches, incremented where the kernel is launched and
-nowhere else.
+``ref.py``, CUDA tensors to ``csrc/segment_sum.cu``.  Each launch adds
+one to the ``launch.segment_sum_bucketed`` counter (:mod:`repro_torch.obs`),
+where the kernel is launched and nowhere else.
 """
 from __future__ import annotations
 
@@ -13,11 +13,13 @@ import ctypes
 import numpy as np
 import torch
 
+from ... import obs
+from ...transfer import to_device
 from .. import _build
 from ..policy import use_kernel
 from .ref import segment_sum_bucketed_ref
 
-launches = {"segment_sum_bucketed": 0}
+KERNELS = ("segment_sum_bucketed",)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"segment_sum_bucketed_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}
@@ -44,19 +46,22 @@ def bucket_edges(seg_ids: np.ndarray, num_segments: int, block_n: int
     the JAX package's per-bucket loop.
     """
     seg_ids = np.asarray(seg_ids)
-    order = np.argsort(seg_ids, kind="stable")
-    sorted_ids = seg_ids[order]
     NB = -(-num_segments // block_n)
-    bucket_of = sorted_ids // block_n
-    counts = np.bincount(bucket_of, minlength=NB)
-    ME = max(int(counts.max(initial=0)), 1)
-    starts = np.zeros(NB + 1, np.int64)
-    np.cumsum(counts, out=starts[1:])
-    pos = np.arange(sorted_ids.size, dtype=np.int64) - starts[bucket_of]
-    out_order = np.zeros((NB, ME), np.int64)
-    local = np.full((NB, ME), -1, np.int32)
-    out_order[bucket_of, pos] = order
-    local[bucket_of, pos] = sorted_ids - bucket_of * block_n
+    with obs.span("bucket", edges=seg_ids.size, NB=NB) as sp:
+        order = np.argsort(seg_ids, kind="stable")
+        sorted_ids = seg_ids[order]
+        bucket_of = sorted_ids // block_n
+        counts = np.bincount(bucket_of, minlength=NB)
+        ME = max(int(counts.max(initial=0)), 1)
+        starts = np.zeros(NB + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        pos = np.arange(sorted_ids.size, dtype=np.int64) - starts[bucket_of]
+        out_order = np.zeros((NB, ME), np.int64)
+        local = np.full((NB, ME), -1, np.int32)
+        out_order[bucket_of, pos] = order
+        local[bucket_of, pos] = sorted_ids - bucket_of * block_n
+        sp.note(ME=ME)
+    obs.count("bucket_entries", NB * ME)
     return out_order, local, ME
 
 
@@ -66,8 +71,14 @@ def segment_sum_bucketed(data: torch.Tensor, local_ids: torch.Tensor, *,
     ``local_ids [NB, ME]`` int32 destination offsets within the bucket
     (-1 = padding; laid out as :func:`bucket_edges` emits them) ->
     ``[NB, block_n, D]`` per-bucket sums."""
-    if not use_kernel(data, local_ids):
-        return segment_sum_bucketed_ref(data, local_ids, block_n=block_n)
+    with obs.span("launch.segment_sum", shape=tuple(data.shape)):
+        if not use_kernel(data, local_ids):
+            return segment_sum_bucketed_ref(data, local_ids, block_n=block_n)
+        return _segment_sum_kernel(data, local_ids, block_n)
+
+
+def _segment_sum_kernel(data: torch.Tensor, local_ids: torch.Tensor,
+                        block_n: int) -> torch.Tensor:
     if data.dtype != torch.float32 or local_ids.dtype != torch.int32:
         raise TypeError("segment_sum_bucketed takes f32 data, int32 ids")
     if not (data.is_contiguous() and local_ids.is_contiguous()):
@@ -84,7 +95,7 @@ def segment_sum_bucketed(data: torch.Tensor, local_ids: torch.Tensor, *,
         _build.launch(_load(), "segment_sum_bucketed_launch", data,
                       data.data_ptr(), local_ids.data_ptr(), out.data_ptr(),
                       NB, ME, D, block_n)
-        launches["segment_sum_bucketed"] += 1
+        obs.count("launch.segment_sum_bucketed")
     return out
 
 
@@ -103,9 +114,8 @@ def segment_sum(data: torch.Tensor, seg_ids, num_segments: int, *,
     out_order, local, ME = buckets
     NB = local.shape[0]
     dev = data.device
-    order = torch.from_numpy(out_order.reshape(-1)).to(dev)
+    order = to_device(out_order.reshape(-1), dev)
     gathered = data[order].reshape(NB, ME, data.shape[-1])
-    out = segment_sum_bucketed(gathered,
-                               torch.from_numpy(local).to(dev),
+    out = segment_sum_bucketed(gathered, to_device(local, dev),
                                block_n=block_n)
     return out.reshape(NB * block_n, data.shape[-1])[:num_segments]

@@ -24,7 +24,9 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels.policy import resolve_device
+from ..transfer import host_tensor
 
 
 def stream_chunk_k(default: int = 8) -> int:
@@ -34,15 +36,6 @@ def stream_chunk_k(default: int = 8) -> int:
         return int(os.environ.get("REPRO_STREAM_CHUNK", default))
     except ValueError:
         return default
-
-
-def host_tensor(a: np.ndarray) -> torch.Tensor:
-    """numpy -> CPU tensor sharing its memory; packed ``uint32`` words
-    become their ``int32`` view (torch's uint32 lacks ``~`` and ``>>``)."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a)
 
 
 class PinnedPut:
@@ -65,6 +58,7 @@ class PinnedPut:
         while self._inflight and self._inflight[0][0].query():
             self._inflight.popleft()
         pinned = t.pin_memory()
+        obs.count("h2d_bytes", t.nbytes)
         out = pinned.to(self.device, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))

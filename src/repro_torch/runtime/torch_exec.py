@@ -30,7 +30,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from .staging import DeviceStager, host_tensor, stream_chunk_k
+from .staging import DeviceStager, stream_chunk_k
+from .. import obs
 from ..core import bitmaps as bmod
 from ..core import planir
 from ..core.deltagraph import DeltaGraph, Plan
@@ -41,6 +42,7 @@ from ..kernels import (FusedOut, delta_apply_chain, delta_apply_chain_batched,
                        delta_apply_fused_pair, segment_sum)
 from ..kernels.policy import resolve_device
 from ..storage import columnar as col
+from ..transfer import to_device, to_host
 
 
 # ---------------------------------------------------------------------------
@@ -50,46 +52,41 @@ from ..storage import columnar as col
 _fit_words = bmod.np_fit_words
 
 
+def _rows_pair(times: np.ndarray, etype: np.ndarray, slot: np.ndarray,
+               forward: bool, rng) -> tuple[np.ndarray, ...]:
+    """An eventlist's rows with ``rng[0] < time <= rng[1]`` (all of them
+    when ``rng`` is None) as one chain step's ``(na, nd, ea, ed)`` slot
+    index lists, applied ``forward`` or backward: host lowering, the
+    first half of the step's ``pack`` (the planes' words are the second)."""
+    with obs.span("pack", rows=len(times)):
+        m = (np.ones(times.shape, bool) if rng is None
+             else (times > rng[0]) & (times <= rng[1]))
+        et, sl = etype[m], slot[m]
+
+        def pair(new_code, del_code):
+            new_s = sl[et == new_code]
+            del_s = sl[et == del_code]
+            if forward:
+                adds = np.setdiff1d(new_s, del_s)   # add-then-del nets to del
+                dels = del_s
+            else:
+                adds = np.setdiff1d(del_s, new_s)   # un-delete revives
+                dels = new_s
+            return adds.astype(np.int32), dels.astype(np.int32)
+
+        na, nd = pair(EV_NEW_NODE, EV_DEL_NODE)
+        ea, ed = pair(EV_NEW_EDGE, EV_DEL_EDGE)
+        return na, nd, ea, ed
+
+
 def _elist_pair(comps, forward: bool, rng) -> tuple[np.ndarray, ...]:
     s = comps[col.ELIST_STRUCT]
-    t = s["time"]
-    m = np.ones(t.shape, bool) if rng is None else (t > rng[0]) & (t <= rng[1])
-    et, sl = s["etype"][m], s["slot"][m]
-
-    def pair(new_code, del_code):
-        new_s = sl[et == new_code]
-        del_s = sl[et == del_code]
-        if forward:
-            adds = np.setdiff1d(new_s, del_s)   # add-then-del nets to del
-            dels = del_s
-        else:
-            adds = np.setdiff1d(del_s, new_s)   # un-delete revives
-            dels = new_s
-        return adds.astype(np.int32), dels.astype(np.int32)
-
-    na, nd = pair(EV_NEW_NODE, EV_DEL_NODE)
-    ea, ed = pair(EV_NEW_EDGE, EV_DEL_EDGE)
-    return na, nd, ea, ed
+    return _rows_pair(s["time"], s["etype"], s["slot"], forward, rng)
 
 
 def _recent_pair(dg: DeltaGraph, forward: bool, rng) -> tuple[np.ndarray, ...]:
     ev = dg.recent
-    t = ev.time
-    m = np.ones(t.shape, bool) if rng is None else (t > rng[0]) & (t <= rng[1])
-    et, sl = ev.etype[m], ev.slot[m]
-
-    def pair(new_code, del_code):
-        new_s = sl[et == new_code]
-        del_s = sl[et == del_code]
-        if forward:
-            return (np.setdiff1d(new_s, del_s).astype(np.int32),
-                    del_s.astype(np.int32))
-        return (np.setdiff1d(del_s, new_s).astype(np.int32),
-                new_s.astype(np.int32))
-
-    na, nd = pair(EV_NEW_NODE, EV_DEL_NODE)
-    ea, ed = pair(EV_NEW_EDGE, EV_DEL_EDGE)
-    return na, nd, ea, ed
+    return _rows_pair(ev.time, ev.etype, ev.slot, forward, rng)
 
 
 def _plan_base(dg: DeltaGraph, plan: Plan, pool
@@ -108,33 +105,38 @@ def _plan_base(dg: DeltaGraph, plan: Plan, pool
                 _fit_words(base_e, bmod.num_words(U_e))), []
     if src.action[0] == "current":
         st = dg._last_leaf_state.resized(dg.universe)
-        return ((bmod.np_pack(st.node_mask), bmod.np_pack(st.edge_mask)),
-                [_recent_pair(dg, True, None)])
+        with obs.span("pack", words=bmod.num_words(U_n) + bmod.num_words(U_e)):
+            base = bmod.np_pack(st.node_mask), bmod.np_pack(st.edge_mask)
+        return base, [_recent_pair(dg, True, None)]
     raise ValueError(src.action)  # pragma: no cover
 
 
 def plan_to_chain(dg: DeltaGraph, plan: Plan, pool=None
                   ) -> tuple[tuple[np.ndarray, np.ndarray], list[tuple]]:
     """Lower a *singlepoint* plan into (base bitmaps, [(na,nd,ea,ed), ...])."""
-    (base_n, base_e), chain = _plan_base(dg, plan, pool)
-    for st in plan.steps[1:]:
-        kind = st.action[0]
-        if kind == "delta":
-            d = dg._fetch_delta(st.action[1], NO_ATTRS)
-            if st.action[2]:
-                chain.append((d.node_add, d.node_del, d.edge_add, d.edge_del))
-            else:
-                chain.append((d.node_del, d.node_add, d.edge_del, d.edge_add))
-        elif kind == "elist":
-            comps = dg._fetch_elist(st.action[1], NO_ATTRS)
-            chain.append(_elist_pair(comps, st.action[2], st.action[3]))
-        elif kind == "recent":
-            chain.append(_recent_pair(dg, st.action[2], st.action[3]))
-        elif kind == "noop":
-            pass
-        else:  # pragma: no cover
-            raise ValueError(st.action)
-    return (base_n, base_e), chain
+    with obs.span("lower") as sp:
+        (base_n, base_e), chain = _plan_base(dg, plan, pool)
+        for st in plan.steps[1:]:
+            kind = st.action[0]
+            if kind == "delta":
+                d = dg._fetch_delta(st.action[1], NO_ATTRS)
+                if st.action[2]:
+                    chain.append((d.node_add, d.node_del, d.edge_add,
+                                  d.edge_del))
+                else:
+                    chain.append((d.node_del, d.node_add, d.edge_del,
+                                  d.edge_add))
+            elif kind == "elist":
+                comps = dg._fetch_elist(st.action[1], NO_ATTRS)
+                chain.append(_elist_pair(comps, st.action[2], st.action[3]))
+            elif kind == "recent":
+                chain.append(_recent_pair(dg, st.action[2], st.action[3]))
+            elif kind == "noop":
+                pass
+            else:  # pragma: no cover
+                raise ValueError(st.action)
+        sp.note(K=len(chain))
+        return (base_n, base_e), chain
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +144,7 @@ def plan_to_chain(dg: DeltaGraph, plan: Plan, pool=None
 # ---------------------------------------------------------------------------
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return host_tensor(a).to(device)
+    return to_device(a, device)
 
 
 def _stack_bitmaps(chain_idx: list[np.ndarray], U: int,
@@ -180,18 +182,42 @@ def execute_singlepoint_torch(dg: DeltaGraph, t: int, *, device="cuda",
 # ---------------------------------------------------------------------------
 
 
+class _Landed(FusedOut):
+    """One plane's :class:`FusedOut` as :class:`SnapshotAnalytics` holds
+    it: its readbacks are spans of the retrieval that landed it
+    (``retrieval``, the ``retrieve`` span)."""
+
+    def live_count(self):
+        with obs.span("analytics.counts", parent=self.retrieval):
+            return super().live_count()
+
+    def weighted_total(self):
+        with obs.span("analytics.weighted_total", parent=self.retrieval):
+            return super().weighted_total()
+
+
+def _landed(out: FusedOut, retrieval) -> _Landed:
+    plane = _Landed(*out)
+    plane.retrieval = retrieval
+    return plane
+
+
 class SnapshotAnalytics:
     """Push-style analytics emitted by the fused delta-apply kernel: the
     node/edge :class:`FusedOut` partials from the same pass that landed the
     chain.  ``node.live_count()`` / ``edge.live_count()`` are the snapshot
     order and size; ``edge.live`` feeds :func:`degrees` (per-node degree via
     the segment_sum kernel); ``node.weighted_total()`` is the PageRank push
-    mass when per-slot contributions were supplied."""
+    mass when per-slot contributions were supplied.  Each of these calls is
+    a span of the retrieval (``retrieval``: its ``retrieve`` span), made
+    after that span has closed."""
 
-    def __init__(self, node: FusedOut, edge: FusedOut, dg: DeltaGraph):
-        self.node = node
-        self.edge = edge
+    def __init__(self, node: FusedOut, edge: FusedOut, dg: DeltaGraph,
+                 retrieval=None):
+        self.node = _landed(node, retrieval)
+        self.edge = _landed(edge, retrieval)
         self._dg = dg
+        self._retrieval = retrieval
 
     def num_nodes(self) -> int:
         return int(self.node.live_count())
@@ -203,12 +229,13 @@ class SnapshotAnalytics:
         """Per-node degree (both endpoints of live edges) reduced from the
         fused kernel's unpacked edge indicator by the segment_sum kernel —
         no host round-trip between apply and reduction."""
-        uni = self._dg.universe
-        E, N = uni.num_edges, uni.num_nodes
-        live = self.edge.live[:E][:, None]
-        deg = (segment_sum(live, uni.edge_src[:E], N)
-               + segment_sum(live, uni.edge_dst[:E], N))
-        return deg.reshape(-1).cpu().numpy()
+        with obs.span("analytics.degrees", parent=self._retrieval):
+            uni = self._dg.universe
+            E, N = uni.num_edges, uni.num_nodes
+            live = self.edge.live[:E][:, None]
+            deg = (segment_sum(live, uni.edge_src[:E], N)
+                   + segment_sum(live, uni.edge_dst[:E], N))
+            return to_host(deg.reshape(-1))
 
 
 def _transient_step(dg: DeltaGraph, U_n: int, U_e: int):
@@ -233,29 +260,40 @@ def execute_singlepoint_fused(dg: DeltaGraph, t: int, *,
     analytics sweep over the mask is gone.
     Transient-slot clearing folds into the chain as a final delete step, so
     analytics and the returned bool masks agree bit-for-bit.
+
+    The call is one ``retrieve`` span (:mod:`repro_torch.obs`); the
+    analytics' calls join its request.
     """
     dev = resolve_device(device)
-    plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
-    (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
-    U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
-    W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
-    tn, te = _transient_step(dg, U_n, U_e)
-    n_adds = np.stack([bmod.np_from_indices(c[0], U_n) for c in chain]
-                      + [np.zeros(W_n, np.uint32)])
-    n_dels = np.stack([bmod.np_from_indices(c[1], U_n) for c in chain] + [tn])
-    e_adds = np.stack([bmod.np_from_indices(c[2], U_e) for c in chain]
-                      + [np.zeros(W_e, np.uint32)])
-    e_dels = np.stack([bmod.np_from_indices(c[3], U_e) for c in chain] + [te])
-    w = None
-    if node_weights is not None:
-        w = _to_device(np.asarray(node_weights, np.float32).reshape(-1), dev)
-    fn, fe = delta_apply_fused_pair(
-        _to_device(base_n, dev), _to_device(n_adds, dev),
-        _to_device(n_dels, dev), _to_device(base_e, dev),
-        _to_device(e_adds, dev), _to_device(e_dels, dev), w)
-    nm = bmod.np_unpack(bmod.to_numpy_words(fn.mask), U_n)
-    em = bmod.np_unpack(bmod.to_numpy_words(fe.mask), U_e)
-    return nm, em, SnapshotAnalytics(fn, fe, dg)
+    with obs.span("retrieve", t=t) as retrieval:
+        plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
+        (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
+        U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
+        W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
+        with obs.span("pack", words=2 * (len(chain) + 1) * (W_n + W_e)):
+            tn, te = _transient_step(dg, U_n, U_e)
+            n_adds = np.stack([bmod.np_from_indices(c[0], U_n)
+                               for c in chain] + [np.zeros(W_n, np.uint32)])
+            n_dels = np.stack([bmod.np_from_indices(c[1], U_n)
+                               for c in chain] + [tn])
+            e_adds = np.stack([bmod.np_from_indices(c[2], U_e)
+                               for c in chain] + [np.zeros(W_e, np.uint32)])
+            e_dels = np.stack([bmod.np_from_indices(c[3], U_e)
+                               for c in chain] + [te])
+        w = None
+        if node_weights is not None:
+            w = _to_device(np.asarray(node_weights, np.float32).reshape(-1),
+                           dev)
+        fn, fe = delta_apply_fused_pair(
+            _to_device(base_n, dev), _to_device(n_adds, dev),
+            _to_device(n_dels, dev), _to_device(base_e, dev),
+            _to_device(e_adds, dev), _to_device(e_dels, dev), w)
+        words_n = bmod.to_numpy_words(fn.mask)
+        words_e = bmod.to_numpy_words(fe.mask)
+        with obs.span("unpack", bits=U_n + U_e):
+            nm = bmod.np_unpack(words_n, U_n)
+            em = bmod.np_unpack(words_e, U_e)
+    return nm, em, SnapshotAnalytics(fn, fe, dg, retrieval)
 
 
 # ---------------------------------------------------------------------------
