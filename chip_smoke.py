@@ -313,9 +313,9 @@ DRIFT_PROMPT = 256
 DRIFT_WEIGHT_SEEDS, DRIFT_PROMPT_SEEDS = (0, 1), 8
 # evolve path: serve --mode evolve's default workload, 8 intervals of 32
 # points over 5 % of the history each; the recompute engine and the checks
-# run at every 4th point.  One loader window of 8 points: its host
-# bucket_edges (twice per timepoint and pass, about 0.2 s a call at this
-# edge count) makes windows the costliest part of the phase.
+# run at every 4th point.  One loader window of 8 points: its
+# bucket_edges runs twice per timepoint and pass, on the card (the
+# window's data lies there).
 EVOLVE_INTERVALS, EVOLVE_POINTS, CHECK_EVERY, LOADER_BATCH = 8, 32, 4, 8
 # sharded path: 8 word_cyclic storage partitions, as the reference's
 # 8-device retrieval mesh, laid out as 8 rows of one batched chain launch
@@ -557,7 +557,7 @@ def scipy_components(uni, state):
 
 def loader_window(gm, ev, times, horizon, dev, label):
     """One ``SnapshotBatchLoader`` window at ``times``, checked against
-    ``replay``; returns its launch counts, wall seconds and the host
+    ``replay``; returns its launch counts, wall seconds and the
     ``bucket_edges`` seconds inside it."""
     import importlib
 
@@ -741,7 +741,7 @@ def evolve_phase(gm, ev, dev) -> dict:
     horizon = (iv[-1] - iv[0]) // (EVOLVE_POINTS - 1) * 4
     lw = loader_window(gm, ev, iv[:LOADER_BATCH], horizon, dev, "evolve")
     print(f"evolve: SnapshotBatchLoader window of {LOADER_BATCH} points, "
-          f"horizon {horizon}: {lw['wall_s']:.6f} s, of which host "
+          f"horizon {horizon}: {lw['wall_s']:.6f} s, of which "
           f"bucket_edges {lw['bucket_edges_s']:.6f} s in "
           f"{lw['bucket_edges_calls']} calls; batch = replay; launches "
           f"{json.dumps(lw['launches'])}; phase "

@@ -2,8 +2,9 @@
 made.
 
 :func:`to_device` is the one host-to-device copy of a point retrieval
-(planes, weights, ``segment_sum``'s bucket arrays): a pageable ``.to()``,
-inside a ``stage`` span, its bytes added to ``h2d_bytes``.  A copy to the
+(planes, weights, the segment ids that ``segment_sum`` buckets on the
+card, or bucket arrays built on the host): a pageable ``.to()``, inside a
+``stage`` span, its bytes added to ``h2d_bytes``.  A copy to the
 CPU is no copy: the host tensor comes back as it is, with no span and no
 count.  :func:`to_host` brings a tensor back as a numpy array inside a
 ``readback`` span (the copy and the host's wait for the device before

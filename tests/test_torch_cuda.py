@@ -6,7 +6,8 @@ odd widths, ragged word groups, K = 0 and K past the fused kernel's
 unrolled limit, weights shorter than ``32 * W``, both planes in one fused
 launch, segment-sum's bucket layouts (a bucket of only padding, empty rows,
 a hub bucket longer than the kernel's shared-memory tile; D 1, 4 and 16,
-block_n 8, 128 and 256), the pinned host-to-device put and the streamed
+block_n 8, 128 and 256), those buckets built on the card against the
+host's, the pinned host-to-device put and the streamed
 retrieval path; for flash
 attention the JAX suite's shape sweep plus D = 256 with GQA 4:1, windows,
 rows without a key, strided inputs, the split-K decode kernel at the
@@ -37,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core import DeltaGraph
 from repro_torch.data.generators import churn_network
 from repro_torch.kernels import (attention, delta_apply_chain,
@@ -219,6 +221,54 @@ def test_cuda_segment_sum_layouts(cuda_device, layout, D, bn):
         assert launch_counts()["segment_sum_bucketed"] == n0 + 1
         ref = segment_sum(torch.from_numpy(data), ids, N, block_n=bn)
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["padding_bucket", "gaps", "hub",
+                                    "random", "empty"])
+@pytest.mark.parametrize("bn", [8, 128])
+def test_cuda_bucket_edges_device_route(cuda_device, layout, bn):
+    """For CUDA data the buckets are built on the card: entry for entry the
+    host route's arrays, in one ``bucket`` span that stages the ids once
+    (a ``stage`` inside it, their bytes in ``h2d_bytes``) and adds NB x ME
+    to ``bucket_entries``; ``segment_sum`` on CUDA data, with and without
+    those buckets passed in, equals the plain version bit for bit and
+    stages nothing more when given them."""
+    rng = np.random.default_rng(len(layout) * bn)
+    if layout in ("random", "empty"):
+        N = 700
+        ids = rng.integers(0, N, 0 if layout == "empty" else 50_000)
+    else:
+        ids, N = _layout_ids(layout, bn, rng)
+    ids = ids.astype(np.int32)
+    host = bucket_edges(ids, N, bn)
+    NB = -(-N // bn)
+    before = obs.counters()
+    obs.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        order, local, ME = bucket_edges(ids, N, bn, cuda_device)
+    after = obs.counters()
+    (bucket,) = [r for r in obs.records() if r.name == "bucket"]
+    (stage,) = [r for r in obs.records() if r.name == "stage"]
+    assert bucket.work == {"edges": ids.size, "NB": NB, "ME": ME}
+    assert stage.parent == bucket.sid and stage.work == {"bytes": ids.nbytes}
+    assert after["bucket_entries"] - before.get("bucket_entries", 0) == \
+        NB * ME
+    assert after["h2d_bytes"] - before.get("h2d_bytes", 0) == ids.nbytes
+    assert order.is_cuda and local.is_cuda and ME == host[2]
+    assert np.array_equal(order.cpu().numpy(), host[0])
+    assert np.array_equal(local.cpu().numpy(), host[1])
+    data = rng.standard_normal((ids.size, 2)).astype(np.float32)
+    ref = segment_sum(torch.from_numpy(data), ids, N, block_n=bn)
+    on_card = torch.from_numpy(data).to(cuda_device)
+    got = segment_sum(on_card, ids, N, block_n=bn).cpu()
+    h2d = obs.counters().get("h2d_bytes", 0)
+    pre = segment_sum(on_card, ids, N, block_n=bn,
+                      buckets=(order, local, ME)).cpu()
+    assert obs.counters().get("h2d_bytes", 0) == h2d
+    for out in (got, pre):
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ from repro_torch.kernels import (bucket_edges, delta_apply_chain,
                                  delta_apply_fused_batched,
                                  delta_apply_fused_pair, launch_counts,
                                  policy, segment_sum)
-from repro_torch.kernels.segment_sum import segment_sum_bucketed
+from repro_torch.kernels.segment_sum import (bucket_edges_tensor,
+                                             segment_sum_bucketed)
 from repro_torch.runtime.staging import host_tensor as _t   # words as int32
 
 JAX_IMPLS = (("pallas", True), ("xla", None))
@@ -331,6 +332,49 @@ def test_bucket_edges_identical(E, N, bn):
     a = segment_sum(torch.from_numpy(data), ids, N, block_n=bn, buckets=got)
     b = segment_sum(torch.from_numpy(data), ids, N, block_n=bn)
     assert torch.equal(a, b)
+
+
+BUCKET_CASES = ([(layout, None, None, bn)
+                 for layout in ("padding_bucket", "gaps", "hub")
+                 for bn in (8, 16, 128)]
+                + [("random", 0, 300, 128), ("random", 0, 5, 4),
+                   ("random", 1, 1, 128), ("random", 200, 50, 16),
+                   ("random", 5000, 700, 128)])
+
+
+@pytest.mark.parametrize("layout,E,N,bn", BUCKET_CASES)
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_bucket_edges_tensor_route_identical(layout, E, N, bn, dtype):
+    """The device route, run here on CPU tensors, lays out exactly the host
+    route's ``order``, ``local`` and ``ME``; its tensors as ``buckets=``
+    give the same sums.  A CPU ``device`` keeps the host route."""
+    rng = np.random.default_rng(len(layout) * bn + (E or 0))
+    if layout == "random":
+        ids = rng.integers(0, N, E)
+    else:
+        ids, N = _layout_ids(layout, bn, rng)
+    ids = ids.astype(dtype)
+    host = bucket_edges(ids, N, bn, device="cpu")
+    assert isinstance(host[0], np.ndarray)
+    order, local, ME = bucket_edges_tensor(torch.from_numpy(ids), N, bn)
+    assert ME == host[2]
+    assert order.dtype == torch.int64 and local.dtype == torch.int32
+    assert np.array_equal(order.numpy(), host[0])
+    assert np.array_equal(local.numpy(), host[1])
+    data = (rng.random((ids.size, 2)) < 0.5).astype(np.float32)
+    a = segment_sum(torch.from_numpy(data), ids, N, block_n=bn,
+                    buckets=(order, local, ME))
+    b = segment_sum(torch.from_numpy(data), ids, N, block_n=bn)
+    assert torch.equal(a, b)
+
+
+def test_bucket_edges_tensor_route_rejects_ids_past_the_buckets():
+    with pytest.raises(IndexError):
+        bucket_edges_tensor(torch.tensor([0, 9]), 5, 4)
+    with pytest.raises(ValueError):
+        bucket_edges_tensor(torch.tensor([0, -1]), 5, 4)
+    with pytest.raises(IndexError):
+        bucket_edges_tensor(torch.tensor([0]), 0, 4)
 
 
 # ---------------------------------------------------------------------------
