@@ -18,9 +18,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    ``execute_multipoint_torch(land_in_pool=True)`` and 8 by
    ``execute_singlepoint_fused`` with ``degrees()``, checked against the
    ``replay`` oracle.  Launch counts are zeroed just before and read just
-   after: each of the path's three kernels must have run, the fused
+   after: each of the path's four kernels must have run, the fused
    kernel once per fused retrieval (``delta_apply_fused_pair``: node and
-   edge planes in one launch) and segment-sum twice per ``degrees()``;
+   edge planes in one launch), ``planes_from_indices`` once per fused
+   retrieval whose chain holds an index (its planes built on the card)
+   and segment-sum twice per ``degrees()``;
 3. evolve path, on the same manager: ``dense_intervals(tmax, 8, 32,
    window_frac=0.05)`` (``serve --mode evolve``'s default workload);
    ``GraphManager.evolve`` for masks, degree, PageRank
@@ -65,7 +67,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
    K = 16 with weights, ``live`` on and off; segment-sum on the degree
    feeds by source and by destination node, the second with hub buckets)
    and at the largest shape the path gave it (for the fused kernel,
-   the largest pair call, and its edge plane alone); bit for bit (degrees
+   the largest pair call, and its edge plane alone; ``planes_from_indices``
+   at the main path's K = 7 and widths with one 1.26 M-index list, beside
+   the host's ``np_from_indices`` of the same lists); bit for bit (degrees
    exactly, and
    segment-sum also on general f32 and against ``index_add_``).  Kernel
    and ``index_add_`` times are device times, a CUDA graph of repeated
@@ -278,7 +282,7 @@ SEED = 0
 # The limit allows two ulps and 1e-5.
 BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-5
 RETRIEVAL_KERNELS = ("delta_apply_chain", "delta_apply_fused",
-                     "segment_sum_bucketed")
+                     "planes_from_indices", "segment_sum_bucketed")
 # LM serving: gemma3-1b at full width and depth.  The repo's LM shapes
 # prefill_32k (B = 32) and decode_32k (B = 128) at 32,768 tokens are cut
 # to one card: 32k-token caches at B = 128 alone would take 112 GB.
@@ -3260,8 +3264,10 @@ def main() -> int:
     from repro_torch.core import GraphManager, GraphPool, replay
     from repro_torch.data.generators import churn_network, growing_network
     from repro_torch.kernels import _build
+    from repro_torch.core import bitmaps as bmod
     from repro_torch.kernels.delta_apply.ref import (delta_apply_chain_ref,
-                                                     delta_apply_fused_ref)
+                                                     delta_apply_fused_ref,
+                                                     planes_from_indices_ref)
     from repro_torch.kernels.segment_sum import (bucket_edges,
                                                  segment_sum_bucketed,
                                                  segment_sum_bucketed_ref)
@@ -3312,9 +3318,10 @@ def main() -> int:
     fused_times = [int(t) for t in rng.choice(times, 8, replace=False)]
 
     # record the shapes the main path hands the kernels
-    seen = {"chain": [], "fused": []}
+    seen = {"chain": [], "fused": [], "planes": []}
     orig_chain = torch_exec.delta_apply_chain_batched
     orig_fused = torch_exec.delta_apply_fused_pair
+    orig_planes = torch_exec.planes_from_indices
 
     def rec_chain(b, a, d):
         seen["chain"].append(tuple(a.shape))
@@ -3325,8 +3332,13 @@ def main() -> int:
                               wn is not None))
         return orig_fused(bn, an, dn, be, ae, de, wn, we, **kw)
 
+    def rec_planes(idx, offsets, rows, W_n, W_e):
+        seen["planes"].append(idx.numel())
+        return orig_planes(idx, offsets, rows, W_n, W_e)
+
     torch_exec.delta_apply_chain_batched = rec_chain
     torch_exec.delta_apply_fused_pair = rec_fused
+    torch_exec.planes_from_indices = rec_planes
 
     pool = GraphPool(uni)
     weights = rng.random(N, dtype=np.float32)
@@ -3349,6 +3361,7 @@ def main() -> int:
     launches = kernels.launch_counts()
     torch_exec.delta_apply_chain_batched = orig_chain
     torch_exec.delta_apply_fused_pair = orig_fused
+    torch_exec.planes_from_indices = orig_planes
     print(f"main path: multipoint 64 timepoints into GraphPool "
           f"{t_multi:.3f} s; fused + degrees at 8 timepoints "
           f"{t_fused:.3f} s; launches {json.dumps(launches)}")
@@ -3363,6 +3376,12 @@ def main() -> int:
     check(launches["delta_apply_fused"] == len(fused_times) ==
           len(seen["fused"]), f"{launches['delta_apply_fused']} fused "
           f"launches for {len(fused_times)} fused retrievals")
+    check(len(seen["planes"]) == len(fused_times) and
+          launches["planes_from_indices"] == sum(n > 0 for n in
+                                                 seen["planes"]),
+          f"{launches['planes_from_indices']} planes_from_indices launches "
+          f"for {len(fused_times)} fused retrievals ({seen['planes']} "
+          f"indices)")
     check(launches["segment_sum_bucketed"] == 2 * len(fused_times),
           f"{launches['segment_sum_bucketed']} segment-sum launches for "
           f"{len(fused_times)} degrees() calls")
@@ -3521,6 +3540,50 @@ def main() -> int:
         edge_plane_alone={
             "shape": f"K={fK} W={fWe} live", **e_t, "plain_ms": e_plain,
             "bound_ms": bound_ms(e_nb, e_ops)[0], "max_abs_err": e_err}))
+
+    # a fused retrieval's planes from its index lists at the main path's K
+    # and widths, one edge list the size of the growing history's large
+    # deltas; beside the host route's np_from_indices of the same lists
+    pK, pWn, pWe, big = 7, bmod.num_words(N), bmod.num_words(E), 1_260_000
+    host_rng = np.random.default_rng(SEED)
+    lists = [np.sort(host_rng.choice(32 * W, 3_000, replace=False))
+             for W in (pWn,) * (2 * pK) + (pWe,) * (2 * pK)]
+    lists[2 * pK + 1] = np.sort(host_rng.choice(E, big, replace=False))
+    offsets = np.zeros(4 * pK + 1, np.int64)
+    np.cumsum([a.size for a in lists], out=offsets[1:])
+    p_idx = torch.from_numpy(np.concatenate(lists).astype(np.int32)).to(dev)
+    p_off = torch.from_numpy(offsets.astype(np.int32)).to(dev)
+    got = kernels.planes_from_indices(p_idx, p_off, pK + 1, pWn, pWe)
+    want = planes_from_indices_ref(p_idx.cpu(), p_off.cpu(), pK + 1, pWn,
+                                   pWe)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        check(torch.equal(g.cpu(), w), "planes_from_indices differs from "
+              "its plain version at the main path's widths")
+    for i, W in enumerate((pWn, pWn, pWe, pWe)):
+        host = np.stack([bmod.np_from_indices(a, 32 * W)
+                         for a in lists[i * pK:(i + 1) * pK]])
+        check(np.array_equal(got[i][:pK].cpu().numpy().view(np.uint32),
+                             host), "planes_from_indices differs from "
+              "np_from_indices")
+    t = timed(lambda: kernels.planes_from_indices(p_idx, p_off, pK + 1, pWn,
+                                                  pWe), 200)
+    plain = cuda_ms(lambda: planes_from_indices_ref(p_idx, p_off, pK + 1,
+                                                    pWn, pWe), 3)
+    t0 = time.perf_counter()
+    for i, W in enumerate((pWn, pWn, pWe, pWe)):
+        np.stack([bmod.np_from_indices(a, 32 * W)
+                  for a in lists[i * pK:(i + 1) * pK]])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    n_idx = int(offsets[-1])
+    record.append(entry(
+        "planes_from_indices", da_src, "none (host np_from_indices)",
+        t["ms"], plain, 0.0,
+        4.0 * (n_idx + 4 * pK + 1) + 8.0 * (pK + 1) * (pWn + pWe),
+        float(n_idx), host_loop_ms=t["host_loop_ms"],
+        shape=f"K={pK} rows={pK + 1} W={pWn}+{pWe}, {n_idx} indices "
+              f"(one list of {big})",
+        host_np_from_indices_ms=host_ms))
 
     # segment sum on the main path's degree feeds: a live indicator over
     # every edge slot, bucketed by source node and by destination node as

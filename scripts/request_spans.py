@@ -14,12 +14,24 @@ profiler's clock with its ``trace_start_ns()``.  Prints, and writes to
 * ``split_ms``: each span name's time a request (its records' lengths
   over the window's requests), and the masks' share of ``readback`` and
   the planes' and weights' share of ``stage`` (the parts the benchmark's
-  ``lower_ms`` covers);
+  ``lower_ms`` covers), and ``pack`` by its work: ``pack.rows`` (an
+  eventlist's rows into index lists), ``pack.base`` (the current
+  state's base planes) and ``pack.planes`` (the chain's planes, or on the
+  card the index lists concatenated for them);
 * ``transfer``: the bytes copied each way a request (the program's
   ``h2d_bytes`` and ``d2h_bytes`` counters over the window) and the rate
   each direction's spans give them (``stage``, ``readback``; a
   ``readback`` holds the host's wait for the device as well, so its rate
   is what a request sees, not the link's);
+* ``pack_indices_per_request``: the slot indices a request's planes were
+  built from on the card (the program's ``pack_indices`` counter over the
+  window);
+* ``request_kinds``: the requests split by those indices (each request's
+  ``launch.planes_from_indices`` span): ``large``, at least 1,000,000 (a
+  chain holding one of the growing history's 1.12-1.26 M-index deltas),
+  and ``small``; per kind the count, the mean indices, and the mean and
+  median ms of the ``hgbench::request`` range, its ``retrieve`` span and
+  its ``pack`` spans;
 * ``coverage``: the share of each ``hgbench::request`` range that some
   program span covers (median, least);
 * ``p50_ms``: the median ``hgbench::request`` length of the window;
@@ -55,6 +67,7 @@ from hgbench import catalog, harness, trace  # noqa: E402
 from repro_torch import obs  # noqa: E402
 
 MASK_COPY = "Memcpy DtoH"
+LARGE = 1_000_000       # indices a request: one of growing's large deltas
 
 
 def _union(intervals) -> int:
@@ -122,6 +135,48 @@ def _nested(ranges, spans) -> dict | None:
                                                  pairs[-tenth:])}
 
 
+def _mean_median(xs) -> dict | None:
+    if not xs:
+        return None
+    return {"mean": statistics.fmean(xs), "median": statistics.median(xs)}
+
+
+def request_kinds(recs, host) -> dict | None:
+    """Requests split by the indices their planes were built from (see the
+    module's ``request_kinds``); None where no request built them on the
+    card."""
+    indices = {r.rid: r.work.get("indices", 0) for r in recs
+               if r.name == "launch.planes_from_indices"}
+    if not indices:
+        return None
+    roots = sorted((r for r in recs if r.name == "retrieve"),
+                   key=lambda r: r.start)
+    pack: dict[int, float] = {}
+    for r in recs:
+        if r.name == "pack":
+            pack[r.rid] = pack.get(r.rid, 0.0) + (r.end - r.start) / 1e6
+    latency, j = {}, 0
+    for a, b in sorted(host):
+        while j < len(roots) and roots[j].start < a - 2_000_000:
+            j += 1
+        if j < len(roots) and roots[j].start <= b:
+            latency[roots[j].rid] = (b - a) / 1e6
+            j += 1
+    out = {}
+    for kind, large in (("large", True), ("small", False)):
+        rs = [r for r in roots if (indices.get(r.rid, 0) >= LARGE) == large]
+        out[kind] = {
+            "requests": len(rs),
+            "indices_mean": (statistics.fmean(indices.get(r.rid, 0)
+                                              for r in rs) if rs else None),
+            "request_ms": _mean_median([latency[r.rid] for r in rs
+                                        if r.rid in latency]),
+            "retrieve_ms": _mean_median([(r.end - r.start) / 1e6
+                                         for r in rs]),
+            "pack_ms": _mean_median([pack.get(r.rid, 0.0) for r in rs])}
+    return out
+
+
 def _innermost(spans, t):
     best = None
     for s in spans:
@@ -164,6 +219,12 @@ def analyse(prof, recs, tr, window: tuple[dict, dict]) -> dict:
                                   if r.name == "readback") / n / 1e6
     spent["stage.planes_weights"] = sum(
         r.end - r.start for r in under_retrieve if r.name == "stage") / n / 1e6
+    for r in recs:
+        if r.name == "pack":
+            part = ("pack.rows" if "rows" in r.work else "pack.planes"
+                    if by_sid.get(r.parent) is not None
+                    and by_sid[r.parent].name == "retrieve" else "pack.base")
+            spent[part] = spent.get(part, 0.0) + (r.end - r.start) / n / 1e6
     out["split_ms"] = dict(sorted(spent.items(), key=lambda kv: -kv[1]))
 
     out["transfer"] = {}
@@ -180,6 +241,10 @@ def analyse(prof, recs, tr, window: tuple[dict, dict]) -> dict:
         inside = [(max(r.start, a), min(r.end, b)) for r in recs
                   if r.end > a and r.start < b]
         cover.append(_union(inside) / (b - a) if b > a else 0.0)
+    out["pack_indices_per_request"] = (
+        window[1].get("pack_indices", 0)
+        - window[0].get("pack_indices", 0)) / n
+    out["request_kinds"] = request_kinds(recs, host)
     out["coverage"] = ({"median": statistics.median(cover),
                         "least": min(cover)} if cover else None)
     out["p50_ms"] = (statistics.median((b - a) / 1e6 for a, b in host)

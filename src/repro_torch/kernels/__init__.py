@@ -18,7 +18,8 @@ from .delta_apply import (FusedOut, delta_apply_chain,  # noqa: F401
                           delta_apply_chain_batched,
                           delta_apply_chain_prefix,
                           delta_apply_chain_prefix_batched, delta_apply_fused,
-                          delta_apply_fused_batched, delta_apply_fused_pair)
+                          delta_apply_fused_batched, delta_apply_fused_pair,
+                          planes_from_indices)
 from .flash_attention import KERNELS as _FA_KERNELS
 from .flash_attention import attention  # noqa: F401
 from .segment_sum import KERNELS as _SS_KERNELS

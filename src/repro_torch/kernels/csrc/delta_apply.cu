@@ -52,6 +52,24 @@
 // in the reference; 0 * inf = nan), so the partials are bit-identical to
 // the reference's.  __fmul_rn/__fadd_rn keep nvcc from contracting the
 // pair into an FMA.
+//
+// planes_from_indices_kernel replaces no TPU kernel: it replaces the host's
+// np_from_indices (core/bitmaps.py) on the point path, where the chain's
+// (adds, dels) planes were packed on the host row by row and staged whole.
+// The host now stages the chain's slot index lists, concatenated, with the
+// offsets of their 4·K rows (node adds, node dels, edge adds, edge dels,
+// steps 0..K-1 each), and this kernel ORs each index's bit into its row of
+// the four zeroed stacks.  Bound: bytes; each index is read once and each
+// word written at most once a warp (about 5 MB at the benchmark's mean
+// request, microseconds), so the launch dominates.  Design: a grid-stride
+// loop, one index a thread; the row is a binary search of the offsets
+// (a few hundred bytes, cached); the lanes of a warp that hit one (row,
+// word) meet by __match_any_sync and OR their bits with __reduce_or_sync,
+// and one of them issues the atomicOr, so that a sorted dense list (32
+// consecutive slots a word) costs one atomic a word, not 32 serialised on
+// it.  Indices need be neither sorted nor unique (OR is idempotent).  An
+// index outside [0, 32·W) is dropped here; the caller refuses such lists
+// on the host before staging them.  No TMA or wgmma: there is no product.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -324,6 +342,57 @@ int fused_launch(FusedPlane p0, FusedPlane p1, int B, int K, int block_w,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// index lists -> packed planes
+// ---------------------------------------------------------------------------
+
+struct Planes {
+  int32_t* out[4];         // node adds, node dels [rows, W_n]; edge adds,
+                           // edge dels [rows, W_e]; zeroed by the caller
+  int64_t W[4];
+};
+
+__global__ void planes_from_indices_kernel(const int32_t* __restrict__ idx,
+                                           int64_t n,
+                                           const int32_t* __restrict__ offsets,
+                                           int K, Planes P) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  // warp-uniform trip count: every lane reaches the warp intrinsics
+  for (int64_t i0 = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       i0 < n; i0 += stride) {
+    const int64_t i = i0 + lane;
+    unsigned long long key = ~0ull;   // no row has this key
+    uint32_t bit = 0;
+    uint32_t* word = nullptr;
+    if (i < n) {
+      const int32_t v = __ldcs(idx + i);
+      // the row: the last r with offsets[r] <= i (empty rows repeat an
+      // offset; offsets[4K] = n > i)
+      int lo = 0, hi = 4 * K - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (__ldg(offsets + mid) <= i) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      const int plane = lo / K;
+      const int64_t W = P.W[plane];
+      if (v >= 0 && (int64_t)v < 32 * W) {
+        word = reinterpret_cast<uint32_t*>(P.out[plane]) +
+               (int64_t)(lo - plane * K) * W + (v >> 5);
+        key = ((unsigned long long)lo << 32) | (uint32_t)(v >> 5);
+        bit = 1u << (v & 31);
+      }
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    const uint32_t bits = __reduce_or_sync(peers, bit);
+    if (word != nullptr && lane == __ffs(peers) - 1) atomicOr(word, bits);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -379,6 +448,31 @@ int delta_apply_fused_pair_launch(
       fused_plane(base_e, adds_e, dels_e, weights_e, mask_e, pop_e, accw_e,
                   live_e, W_e, block_w),
       B, K, block_w, stream);
+}
+
+// idx [n] int32 slot indices, the concatenation of 4·K rows whose bounds
+// are offsets [4K + 1] int32 (offsets[0] = 0, offsets[4K] = n); row
+// r = p·K + k of plane p (node adds, node dels, edge adds, edge dels) ORs
+// its indices' bits into row k of out_p, [rows >= K, W_p] int32, zeroed.
+int planes_from_indices_launch(const void* idx, long long n,
+                               const void* offsets, int K, void* out_na,
+                               void* out_nd, void* out_ea, void* out_ed,
+                               long long W_n, long long W_e, void* stream) {
+  if (n <= 0 || K <= 0) return (int)cudaGetLastError();
+  Planes P;
+  P.out[0] = (int32_t*)out_na;
+  P.out[1] = (int32_t*)out_nd;
+  P.out[2] = (int32_t*)out_ea;
+  P.out[3] = (int32_t*)out_ed;
+  P.W[0] = P.W[1] = W_n;
+  P.W[2] = P.W[3] = W_e;
+  // two waves of 256-thread blocks at most; the blocks stride over the rest
+  long long blocks = (n + kThreads - 1) / kThreads;
+  blocks = blocks < 2048 ? blocks : 2048;
+  planes_from_indices_kernel<<<(unsigned)blocks, kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const int32_t*)idx, (int64_t)n, (const int32_t*)offsets, K, P);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

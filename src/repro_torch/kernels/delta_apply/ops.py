@@ -1,4 +1,5 @@
-"""Public wrappers for delta-chain application + fused analytics.
+"""Public wrappers for delta-chain application + fused analytics, and for
+building a chain's packed planes from its slot index lists.
 
 Each wrapper dispatches by the device of its tensors
 (:mod:`repro_torch.kernels.policy`): CPU tensors go to the plain versions
@@ -24,9 +25,10 @@ from ... import obs
 from ...transfer import to_host
 from .. import _build
 from ..policy import use_kernel
-from .ref import delta_apply_chain_ref, delta_apply_fused_ref, pad_weights
+from .ref import (delta_apply_chain_ref, delta_apply_fused_ref, pad_weights,
+                  plane_rows, planes_from_indices_ref)
 
-KERNELS = ("delta_apply_chain", "delta_apply_fused")
+KERNELS = ("delta_apply_chain", "delta_apply_fused", "planes_from_indices")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -35,6 +37,8 @@ _SIGNATURES = {
                                  _I, _I, _L, _I, _P],
     "delta_apply_fused_pair_launch": [*[_P] * 8, _L, *[_P] * 8, _L,
                                       _I, _I, _I, _P],
+    "planes_from_indices_launch": [_P, _L, _P, _I, _P, _P, _P, _P, _L, _L,
+                                   _P],
 }
 _lib: ctypes.CDLL | None = None
 
@@ -273,3 +277,61 @@ def _fused_pair(base_n, adds_n, dels_n, base_e, adds_e, dels_e, weights_n,
                       *ptrs_n, W_n, *ptrs_e, W_e, 1, K, block_w)
         obs.count("launch.delta_apply_fused")
     return FusedOut(*outs_n), FusedOut(*outs_e)
+
+
+# ---------------------------------------------------------------------------
+# index lists -> packed planes
+# ---------------------------------------------------------------------------
+
+
+def planes_from_indices(indices: torch.Tensor, offsets: torch.Tensor,
+                        rows: int, W_n: int, W_e: int
+                        ) -> tuple[torch.Tensor, ...]:
+    """A chain's four stacks of packed planes from its slot index lists:
+    ``indices`` concatenates 4·K lists, row ``r`` being
+    ``indices[offsets[r]:offsets[r + 1]]`` (``offsets``: 4K + 1 entries),
+    and row ``r = p·K + k`` sets its bits in row ``k`` of plane ``p``.
+    Returns ``(node adds, node dels, edge adds, edge dels)``, int32 words
+    ``[rows, W_n]`` twice and ``[rows, W_e]`` twice, zero wherever no index
+    sets a bit (every row past K), as ``core.bitmaps.np_from_indices``
+    packs each list.
+
+    CPU tensors (int32 or int64) run the plain version, which refuses an
+    index outside ``[0, 32·W)`` with ``IndexError``; CUDA tensors (int32)
+    one launch of ``planes_from_indices_kernel`` over one zeroed buffer
+    that the four stacks view (none when there is no index), which drops
+    such an index: check the lists before they are staged, as
+    ``runtime.torch_exec`` does on the host."""
+    K = plane_rows(offsets)
+    with obs.span("launch.planes_from_indices", K=K, rows=rows, W_n=W_n,
+                  W_e=W_e, indices=indices.numel()):
+        if not use_kernel(indices, offsets):
+            return planes_from_indices_ref(indices, offsets, rows, W_n, W_e)
+        return _planes_kernel(indices, offsets, K, rows, W_n, W_e)
+
+
+def _planes_kernel(indices, offsets, K, rows, W_n, W_e):
+    if not indices.dtype == offsets.dtype == torch.int32:
+        raise TypeError(f"the kernel takes int32 indices and offsets, got "
+                        f"{indices.dtype} and {offsets.dtype}")
+    if indices.dim() != 1 or not (indices.is_contiguous()
+                                  and offsets.is_contiguous()):
+        raise ValueError("indices and offsets must be contiguous vectors")
+    if indices.get_device() != offsets.get_device():
+        raise ValueError("indices and offsets must lie on one device")
+    if rows < K:
+        raise ValueError(f"{rows} rows cannot hold {K} chain steps")
+    words = torch.zeros(2 * rows * (W_n + W_e), dtype=torch.int32,
+                        device=indices.device)
+    n_words, e_words = rows * W_n, rows * W_e
+    planes = (words[:n_words].view(rows, W_n),
+              words[n_words:2 * n_words].view(rows, W_n),
+              words[2 * n_words:2 * n_words + e_words].view(rows, W_e),
+              words[2 * n_words + e_words:].view(rows, W_e))
+    n = indices.numel()
+    if n and K:
+        _build.launch(_load(), "planes_from_indices_launch", indices,
+                      indices.data_ptr(), n, offsets.data_ptr(), K,
+                      *(p.data_ptr() for p in planes), W_n, W_e)
+        obs.count("launch.planes_from_indices")
+    return planes

@@ -78,3 +78,48 @@ def delta_apply_fused_ref(base: torch.Tensor, adds: torch.Tensor,
         accw = bits.sum(-1)          # integer-valued: exact in any order
     live = bits.reshape(*lead, W * 32) if emit_live else None
     return m, pop, accw, live
+
+
+def plane_rows(offsets: torch.Tensor) -> int:
+    """K, the chain steps of an offsets array over the 4·K rows of
+    :func:`planes_from_indices_ref` (``4K + 1`` entries)."""
+    n = offsets.numel()
+    if offsets.dim() != 1 or n % 4 != 1:
+        raise ValueError(f"offsets must hold 4K + 1 entries, got shape "
+                         f"{tuple(offsets.shape)}")
+    return (n - 1) // 4
+
+
+def planes_from_indices_ref(indices: torch.Tensor, offsets: torch.Tensor,
+                            rows: int, W_n: int, W_e: int):
+    """Plain version of the index-lists-to-planes kernel.
+
+    ``indices`` (int32 or int64) is the concatenation of 4·K slot index
+    lists, row ``r`` being ``indices[offsets[r]:offsets[r + 1]]``; row
+    ``r = p·K + k`` sets its bits in row ``k`` of plane ``p``: node adds,
+    node dels (``[rows, W_n]``), edge adds, edge dels (``[rows, W_e]``),
+    all int32 words, zero elsewhere (rows past K too).  The same words
+    as ``core.bitmaps.np_from_indices`` of each list; duplicates and any
+    order are allowed.  An index outside ``[0, 32·W)`` raises
+    ``IndexError``."""
+    K = plane_rows(offsets)
+    if rows < K:
+        raise ValueError(f"{rows} rows cannot hold {K} chain steps")
+    dev = indices.device
+    offs = offsets.to(torch.int64)
+    idx = indices.to(torch.int64)
+    row = torch.repeat_interleave(torch.arange(4 * K, device=dev),
+                                  offs[1:] - offs[:-1])
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    out = []
+    for p, W in enumerate((W_n, W_n, W_e, W_e)):
+        sel = (row >= p * K) & (row < (p + 1) * K)
+        ix, step = idx[sel], row[sel] - p * K
+        if ix.numel() and not (0 <= int(ix.min()) and int(ix.max()) < 32 * W):
+            raise IndexError(f"slot index outside [0, {32 * W}) in plane {p}")
+        bits = torch.zeros(rows * W * 32, dtype=torch.bool, device=dev)
+        bits[step * (32 * W) + ix] = True
+        octets = (bits.view(-1, 8).to(torch.uint8) << shifts).sum(
+            -1, dtype=torch.uint8)
+        out.append(octets.view(rows, 4 * W).view(torch.int32))
+    return tuple(out)

@@ -21,7 +21,10 @@ module replaces the *apply* phase with device work:
 Every entry point takes ``device=`` (default ``"cuda"``): CUDA tensors go
 through the hand-written kernels, ``device="cpu"`` through their plain
 PyTorch versions; a missing card raises.  Packed words travel as ``int32``
-tensors; results come back as numpy bool masks.
+tensors; results come back as numpy bool masks.  A point retrieval on the
+card stages its chain's slot index lists and builds the packed planes
+there (:func:`_chain_planes`); the batched and sharded paths pack their
+planes on the host.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ from ..core.events import (EV_DEL_EDGE, EV_DEL_NODE, EV_NEW_EDGE, EV_NEW_NODE)
 from ..core.query import NO_ATTRS
 from ..kernels import (FusedOut, delta_apply_chain, delta_apply_chain_batched,
                        delta_apply_chain_prefix_batched,
-                       delta_apply_fused_pair, segment_sum)
+                       delta_apply_fused_pair, planes_from_indices,
+                       segment_sum)
 from ..kernels.policy import resolve_device
 from ..storage import columnar as col
 from ..transfer import to_device, to_host
@@ -147,13 +151,73 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return to_device(a, device)
 
 
-def _stack_bitmaps(chain_idx: list[np.ndarray], U: int,
-                   device: torch.device) -> torch.Tensor:
-    W = bmod.num_words(U)
-    if not chain_idx:
-        return torch.zeros((0, W), dtype=torch.int32, device=device)
-    rows = [bmod.np_from_indices(ix, U) for ix in chain_idx]
-    return _to_device(np.stack(rows), device)
+def _index_lists(chain: list[tuple], tail: tuple, W_n: int, W_e: int
+                 ) -> tuple[np.ndarray, int]:
+    """The host half of building a chain's planes on the card: one int32
+    array of the 4·K row offsets of the chain's slot index lists (node
+    adds, node dels, edge adds, edge dels, steps 0..K-1 each), the
+    ``tail`` rows' words (the transient dels, or nothing) and the lists
+    themselves, concatenated unsorted; and where the lists start.  Raises
+    ``IndexError`` for an index outside its plane's ``32·W`` slots."""
+    K = len(chain)
+    lists = [c[i] for i in range(4) for c in chain]
+    offsets = np.zeros(4 * K + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, lists), np.int64, 4 * K), out=offsets[1:])
+    buf = np.concatenate([offsets, *(t.view(np.int32) for t in tail), *lists],
+                         dtype=np.int32)
+    head = buf.size - int(offsets[-1])
+    split = head + int(offsets[2 * K])          # node lists, then edge lists
+    for part, W in ((buf[head:split], W_n), (buf[split:], W_e)):
+        # a negative index reads as 2**31 or more
+        if part.size and int(part.view(np.uint32).max()) >= 32 * W:
+            raise IndexError(f"slot index outside [0, {32 * W})")
+    return buf, head
+
+
+def _chain_planes(chain: list[tuple], U_n: int, U_e: int,
+                  device: torch.device, dg: DeltaGraph | None = None
+                  ) -> tuple[torch.Tensor, ...]:
+    """A chain's ``(na, nd, ea, ed)`` slot index lists as its four stacks of
+    packed planes on ``device``: node adds, node dels ``[rows, W_n]``, edge
+    adds, edge dels ``[rows, W_e]``, int32 words, one row a step; with
+    ``dg``, one more row: zero adds, and ``dg``'s transient slots as dels
+    (:func:`_transient_step`).  The host's work is one ``pack`` span, its
+    work the planes' words.
+
+    CPU data is packed on the host, one ``bmod.np_from_indices`` a list.
+    For CUDA data the host concatenates the lists (:func:`_index_lists`;
+    ``pack_indices`` counts their indices), stages them once, and the card
+    builds the planes in one ``planes_from_indices`` launch.  Both routes
+    refuse an index outside its plane's ``32·W`` slots with
+    ``IndexError``."""
+    K = len(chain)
+    W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
+    rows = K + (dg is not None)
+    cuda = device.type == "cuda"
+    with obs.span("pack", words=2 * rows * (W_n + W_e)):
+        tail = () if dg is None else _transient_step(dg, U_n, U_e)
+        if cuda:
+            buf, head = _index_lists(chain, tail, W_n, W_e)
+            obs.count("pack_indices", buf.size - head)
+        else:
+            planes = []
+            for i, U in enumerate((U_n, U_n, U_e, U_e)):
+                out = np.zeros((rows, bmod.num_words(U)), np.uint32)
+                for k, c in enumerate(chain):
+                    out[k] = bmod.np_from_indices(c[i], U)
+                if tail and i % 2:
+                    out[K] = tail[i // 2]
+                planes.append(out)
+    if not cuda:
+        return tuple(_to_device(p, device) for p in planes)
+    staged = _to_device(buf, device)
+    an, dn, ae, de = planes_from_indices(staged[head:], staged[:4 * K + 1],
+                                         rows, W_n, W_e)
+    if tail:
+        at = 4 * K + 1
+        dn[K].copy_(staged[at:at + W_n])
+        de[K].copy_(staged[at + W_n:head])
+    return an, dn, ae, de
 
 
 def execute_singlepoint_torch(dg: DeltaGraph, t: int, *, device="cuda",
@@ -164,10 +228,7 @@ def execute_singlepoint_torch(dg: DeltaGraph, t: int, *, device="cuda",
     plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
     (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
     U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
-    n_adds = _stack_bitmaps([c[0] for c in chain], U_n, dev)
-    n_dels = _stack_bitmaps([c[1] for c in chain], U_n, dev)
-    e_adds = _stack_bitmaps([c[2] for c in chain], U_e, dev)
-    e_dels = _stack_bitmaps([c[3] for c in chain], U_e, dev)
+    n_adds, n_dels, e_adds, e_dels = _chain_planes(chain, U_n, U_e, dev)
     out_n = delta_apply_chain(_to_device(base_n, dev), n_adds, n_dels)
     out_e = delta_apply_chain(_to_device(base_e, dev), e_adds, e_dels)
     nm = bmod.np_unpack(bmod.to_numpy_words(out_n), U_n)
@@ -269,25 +330,15 @@ def execute_singlepoint_fused(dg: DeltaGraph, t: int, *,
         plan = dg.plan_singlepoint(t, NO_ATTRS, use_current)
         (base_n, base_e), chain = plan_to_chain(dg, plan, pool)
         U_n, U_e = dg.universe.num_nodes, dg.universe.num_edges
-        W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
-        with obs.span("pack", words=2 * (len(chain) + 1) * (W_n + W_e)):
-            tn, te = _transient_step(dg, U_n, U_e)
-            n_adds = np.stack([bmod.np_from_indices(c[0], U_n)
-                               for c in chain] + [np.zeros(W_n, np.uint32)])
-            n_dels = np.stack([bmod.np_from_indices(c[1], U_n)
-                               for c in chain] + [tn])
-            e_adds = np.stack([bmod.np_from_indices(c[2], U_e)
-                               for c in chain] + [np.zeros(W_e, np.uint32)])
-            e_dels = np.stack([bmod.np_from_indices(c[3], U_e)
-                               for c in chain] + [te])
+        n_adds, n_dels, e_adds, e_dels = _chain_planes(chain, U_n, U_e, dev,
+                                                       dg)
         w = None
         if node_weights is not None:
             w = _to_device(np.asarray(node_weights, np.float32).reshape(-1),
                            dev)
         fn, fe = delta_apply_fused_pair(
-            _to_device(base_n, dev), _to_device(n_adds, dev),
-            _to_device(n_dels, dev), _to_device(base_e, dev),
-            _to_device(e_adds, dev), _to_device(e_dels, dev), w)
+            _to_device(base_n, dev), n_adds, n_dels,
+            _to_device(base_e, dev), e_adds, e_dels, w)
         words_n = bmod.to_numpy_words(fn.mask)
         words_e = bmod.to_numpy_words(fe.mask)
         with obs.span("unpack", bits=U_n + U_e):

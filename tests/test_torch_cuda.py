@@ -8,7 +8,8 @@ launch, segment-sum's bucket layouts (a bucket of only padding, empty rows,
 a hub bucket longer than the kernel's shared-memory tile; D 1, 4 and 16,
 block_n 8, 128 and 256), those buckets built on the card against the
 host's, the pinned host-to-device put and the streamed
-retrieval path; for flash
+retrieval path, a chain's planes built on the card from its index lists
+(at the main path's widths, and inside a fused retrieval); for flash
 attention the JAX suite's shape sweep plus D = 256 with GQA 4:1, windows,
 rows without a key, strided inputs, the split-K decode kernel at the
 gemma3-1b decode shapes, the wgmma/TMA prefill kernel on ragged tiles,
@@ -40,18 +41,20 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import DeltaGraph
+from repro_torch.core import bitmaps as bmod
 from repro_torch.data.generators import churn_network
 from repro_torch.kernels import (attention, delta_apply_chain,
                                  delta_apply_chain_batched,
                                  delta_apply_fused_batched,
                                  delta_apply_fused_pair, launch_counts,
-                                 segment_sum)
+                                 planes_from_indices, segment_sum)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.segment_sum import (bucket_edges,
                                              segment_sum_bucketed)
 from repro_torch.kernels.flash_attention.ref import attention_ref, visible
 from repro_torch.kernels.delta_apply.ref import (delta_apply_chain_ref,
-                                                 delta_apply_fused_ref)
+                                                 delta_apply_fused_ref,
+                                                 planes_from_indices_ref)
 from repro_torch.runtime import torch_exec
 from repro_torch.runtime.staging import DeviceStager, PinnedPut
 from repro_torch.runtime.staging import host_tensor as _t   # words as int32
@@ -335,6 +338,99 @@ def test_cuda_retrieval_matches_cpu(cuda_device, monkeypatch, chunk):
     assert np.array_equal(em, cem) and np.array_equal(nm, cnm)
     _assert_fused_equal(an.edge, can.edge)
     assert np.array_equal(an.degrees(), can.degrees())
+
+
+def _index_rows(rng, K, W_n, W_e, big=0):
+    """4·K random slot index lists, unsorted and with duplicates, the
+    last word's bits included; with ``big``, the edge adds of step 1 a
+    sorted list of ``big`` distinct slots (the growing history's large
+    delta), as ``(indices, offsets)`` int32."""
+    lists = []
+    for W in (W_n, W_n, W_e, W_e):
+        for _ in range(K):
+            ix = rng.integers(0, 32 * W, int(rng.integers(0, 3000)))
+            lists.append(np.concatenate([ix, ix[:50], [32 * W - 1]]))
+    if big:
+        lists[2 * K + 1] = np.sort(rng.choice(32 * W_e, big, replace=False))
+    offsets = np.zeros(4 * K + 1, np.int64)
+    np.cumsum([ix.size for ix in lists], out=offsets[1:])
+    idx = np.concatenate(lists) if lists else np.zeros(0)
+    return (torch.from_numpy(idx.astype(np.int32)),
+            torch.from_numpy(offsets.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,rows,W_n,W_e,big", [
+    (0, 1, 18764, 43737, 0), (1, 1, 1, 2, 0), (3, 5, 1000, 4097, 0),
+    (7, 8, 18764, 43737, 1_260_000)])      # the main path's widths
+def test_cuda_planes_from_indices_matches_plain(cuda_device, K, rows, W_n,
+                                                W_e, big):
+    """The kernel's four stacks equal the plain version's bit for bit, one
+    launch (none without an index), and every row past K stays zero."""
+    rng = np.random.default_rng(K + W_n)
+    idx, offsets = _index_rows(rng, K, W_n, W_e, big)
+    n0 = launch_counts()["planes_from_indices"]
+    got = planes_from_indices(idx.to(cuda_device), offsets.to(cuda_device),
+                              rows, W_n, W_e)
+    torch.cuda.synchronize()
+    assert launch_counts()["planes_from_indices"] == n0 + (idx.numel() > 0)
+    want = planes_from_indices_ref(idx, offsets, rows, W_n, W_e)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_builds_its_planes_on_the_card(cuda_device, monkeypatch):
+    """A CUDA ``execute_singlepoint_fused`` packs no plane on the host: no
+    ``np_from_indices`` call, one ``planes_from_indices`` launch (none for
+    a chain without an index), its
+    lists' indices added to ``pack_indices``, ``delta_apply_fused_pair``
+    handed ``[K + 1, W]`` int32 planes on the card through
+    ``torch_exec``; masks, counts, degrees and partials equal the CPU
+    route's."""
+    uni, ev = churn_network(n_initial_edges=150, n_events=1200, seed=3)
+    dg = DeltaGraph(uni, MemKV(), L=100, k=2).build(ev)
+    W_n, W_e = bmod.num_words(uni.num_nodes), bmod.num_words(uni.num_edges)
+    w = np.random.default_rng(3).random(uni.num_nodes, dtype=np.float32)
+    tmax = int(ev.time[-1])
+    want = {t: torch_exec.execute_singlepoint_fused(dg, t, node_weights=w,
+                                                    device="cpu")
+            for t in (tmax // 3, tmax // 2, tmax)}
+
+    def no_host_packing(*a, **kw):
+        raise AssertionError("np_from_indices on the CUDA route")
+
+    seen = []
+    fused_pair = torch_exec.delta_apply_fused_pair
+
+    def record(bn, an, dn, be, ae, de, *rest, **kw):
+        seen.append([(p.device.type, p.dtype, tuple(p.shape))
+                     for p in (an, dn, ae, de)])
+        return fused_pair(bn, an, dn, be, ae, de, *rest, **kw)
+
+    monkeypatch.setattr(bmod, "np_from_indices", no_host_packing)
+    monkeypatch.setattr(torch_exec, "delta_apply_fused_pair", record)
+    launched = 0
+    for t, (cnm, cem, can) in want.items():
+        plan = dg.plan_singlepoint(t, torch_exec.NO_ATTRS, True)
+        _, chain = torch_exec.plan_to_chain(dg, plan)
+        K, lists = len(chain), sum(len(ix) for c in chain for ix in c)
+        n0 = launch_counts()["planes_from_indices"]
+        i0 = obs.counters().get("pack_indices", 0)
+        nm, em, an = torch_exec.execute_singlepoint_fused(dg, t,
+                                                          node_weights=w)
+        assert launch_counts()["planes_from_indices"] == n0 + (lists > 0)
+        assert obs.counters()["pack_indices"] - i0 == lists
+        assert seen[-1] == [("cuda", torch.int32, (K + 1, W))
+                            for W in (W_n, W_n, W_e, W_e)]
+        assert np.array_equal(nm, cnm) and np.array_equal(em, cem)
+        assert an.num_nodes() == can.num_nodes()
+        assert an.num_edges() == can.num_edges()
+        assert np.array_equal(an.degrees(), can.degrees())
+        _assert_fused_equal(an.node, can.node)
+        _assert_fused_equal(an.edge, can.edge)
+        launched += lists > 0
+    assert len(seen) == len(want) and launched >= 2
 
 
 @pytest.mark.cuda

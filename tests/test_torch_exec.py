@@ -27,6 +27,9 @@ from repro_torch.interop import (event_arrays, load_reference_index,
 from repro_torch.runtime.executor import Prefetcher
 from repro_torch.runtime.staging import (DeviceStager, PinnedPut,
                                          stream_chunk_k)
+from repro_torch.core import bitmaps as bmod
+from repro_torch.kernels import planes_from_indices
+from repro_torch.runtime import torch_exec
 from repro_torch.runtime.torch_exec import (execute_ir_torch,
                                             execute_multipoint_torch,
                                             execute_singlepoint_fused,
@@ -195,6 +198,57 @@ def test_fused_singlepoint_matches_jax(seed, impl):
 # ---------------------------------------------------------------------------
 # an index the JAX package built, reopened by the port
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("transient", [True, False])
+def test_index_lists_give_the_host_planes(seed, transient):
+    """The card's route to a chain's planes, its device half run by the
+    plain version: the staged int32 array (row offsets, the transient
+    row's words, the lists) gives exactly the host route's four stacks,
+    ``np_from_indices`` a list, at every timepoint of a random history."""
+    _, (uni, ev, dg, pool) = _build(seed)
+    U_n, U_e = uni.num_nodes, uni.num_edges
+    W_n, W_e = bmod.num_words(U_n), bmod.num_words(U_e)
+    tail_of = dg if transient else None
+    for t in _times(ev, dg, np.random.default_rng(seed)):
+        plan = dg.plan_singlepoint(t, NO_ATTRS, True)
+        _, chain = torch_exec.plan_to_chain(dg, plan, pool)
+        K = len(chain)
+        host = torch_exec._chain_planes(chain, U_n, U_e, torch.device(CPU),
+                                        tail_of)
+        tail = (torch_exec._transient_step(dg, U_n, U_e) if transient
+                else ())
+        buf, head = torch_exec._index_lists(chain, tail, W_n, W_e)
+        assert buf.dtype == np.int32
+        assert buf.size - head == sum(len(ix) for c in chain for ix in c)
+        staged = torch.from_numpy(buf)
+        got = planes_from_indices(staged[head:], staged[:4 * K + 1],
+                                  K + transient, W_n, W_e)
+        if transient:
+            got[1][K] = staged[4 * K + 1:4 * K + 1 + W_n]
+            got[3][K] = staged[4 * K + 1 + W_n:head]
+        for g, h in zip(got, host):
+            assert torch.equal(g, h), t
+
+
+@pytest.mark.parametrize("plane", range(4))
+def test_index_lists_refuse_slots_past_their_plane(plane):
+    W_n, W_e = 3, 7
+    chain = [tuple(np.array([1, 2], np.int32) for _ in range(4))] * 2
+    chain[1] = tuple(np.array([32 * (W_n, W_n, W_e, W_e)[plane]
+                               if i == plane else 0], np.int32)
+                     for i in range(4))
+    with pytest.raises(IndexError):
+        torch_exec._index_lists(chain, (), W_n, W_e)
+    chain[1] = tuple(np.array([-1 if i == plane else 0], np.int32)
+                     for i in range(4))
+    with pytest.raises(IndexError):
+        torch_exec._index_lists(chain, (), W_n, W_e)
+    chain[1] = tuple(np.array([32 * (W_n, W_n, W_e, W_e)[i] - 1], np.int32)
+                     for i in range(4))
+    buf, head = torch_exec._index_lists(chain, (), W_n, W_e)
+    assert buf.size - head == 12
 
 
 @pytest.mark.parametrize("seed", [0, 6])

@@ -30,7 +30,7 @@ from repro_torch.kernels import (bucket_edges, delta_apply_chain,
                                  delta_apply_chain_batched, delta_apply_fused,
                                  delta_apply_fused_batched,
                                  delta_apply_fused_pair, launch_counts,
-                                 policy, segment_sum)
+                                 planes_from_indices, policy, segment_sum)
 from repro_torch.kernels.segment_sum import (bucket_edges_tensor,
                                              segment_sum_bucketed)
 from repro_torch.runtime.staging import host_tensor as _t   # words as int32
@@ -375,6 +375,93 @@ def test_bucket_edges_tensor_route_rejects_ids_past_the_buckets():
         bucket_edges_tensor(torch.tensor([0, -1]), 5, 4)
     with pytest.raises(IndexError):
         bucket_edges_tensor(torch.tensor([0]), 0, 4)
+
+
+# ---------------------------------------------------------------------------
+# index lists -> packed planes
+# ---------------------------------------------------------------------------
+
+
+def _plane_lists(case: str, rng):
+    """``(lists [4][K], rows, U_n, U_e)`` for one case of the plain
+    planes-from-indices version."""
+    if case == "k0":
+        return [[], [], [], []], 1, 40, 70
+    if case == "empty":
+        return [[np.zeros(0, np.int32)] * 3 for _ in range(4)], 3, 40, 70
+    if case == "duplicates_unsorted":
+        U_n, U_e = 300, 1000
+        lists = [[rng.integers(0, U, 200) for _ in range(3)]
+                 for U in (U_n, U_n, U_e, U_e)]
+        lists[0][1] = np.concatenate([lists[0][1], lists[0][1][::-1]])
+        return lists, 4, U_n, U_e
+    if case == "ragged_last_word":
+        U_n, U_e = 45, 100                    # W 2 and 4: bits past U too
+        lists = [[np.array([31, 32, 44, 63]), np.array([0, 33])],
+                 [np.zeros(0, np.int32), np.array([63, 62, 63])],
+                 [np.array([96, 99, 127]), np.array([127, 0])],
+                 [np.array([5, 100, 120]), np.zeros(0, np.int32)]]
+        return lists, 2, U_n, U_e
+    assert case == "one_large_list"           # the growing history's shape
+    U_n, U_e = 600_000, 1_400_000
+    big = np.sort(rng.choice(U_e, 1_260_000, replace=False))
+    lists = [[np.sort(rng.choice(U, 500, replace=False)) for _ in range(2)]
+             for U in (U_n, U_n, U_e, U_e)]
+    lists[2][1] = big
+    return lists, 3, U_n, U_e
+
+
+def _concat_lists(lists, dtype):
+    flat = [np.asarray(ix, dtype) for plane in lists for ix in plane]
+    offsets = np.zeros(len(flat) + 1, np.int64)
+    np.cumsum([ix.size for ix in flat], out=offsets[1:])
+    idx = np.concatenate(flat) if flat else np.zeros(0, dtype)
+    return torch.from_numpy(idx.astype(dtype)), torch.from_numpy(
+        offsets.astype(dtype))
+
+
+@pytest.mark.parametrize("case", ["k0", "empty", "duplicates_unsorted",
+                                  "ragged_last_word", "one_large_list"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_planes_from_indices_plain_matches_np_from_indices(case, dtype):
+    """Each row of the four stacks is ``np_from_indices`` of its list, and
+    every row past the lists is zero, for lists in any order, with
+    duplicates, in the ragged last word (up to the index 32·W - 1), empty,
+    or none (K = 0); CPU tensors launch nothing."""
+    rng = np.random.default_rng(len(case))
+    lists, rows, U_n, U_e = _plane_lists(case, rng)
+    idx, offsets = _concat_lists(lists, dtype)
+    W_n, W_e = tbm.num_words(U_n), tbm.num_words(U_e)
+    before = launch_counts()
+    got = planes_from_indices(idx, offsets, rows, W_n, W_e)
+    assert launch_counts() == before
+    for plane, out, U in zip(lists, got, (U_n, U_n, U_e, U_e)):
+        W = tbm.num_words(U)
+        assert out.dtype == torch.int32 and out.shape == (rows, W)
+        want = np.zeros((rows, W), np.uint32)
+        for k, ix in enumerate(plane):
+            want[k] = tbm.np_from_indices(ix, U)
+        assert np.array_equal(out.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("plane", range(4))
+@pytest.mark.parametrize("bad", ["32W", "negative"])
+def test_planes_from_indices_plain_refuses_slots_past_the_words(plane, bad):
+    W_n, W_e = 2, 5
+    lists = [[np.array([0, 1])] for _ in range(4)]
+    lists[plane][0] = np.array([3, 32 * (W_n, W_n, W_e, W_e)[plane]
+                                if bad == "32W" else -1])
+    idx, offsets = _concat_lists(lists, np.int32)
+    with pytest.raises(IndexError):
+        planes_from_indices(idx, offsets, 1, W_n, W_e)
+
+
+def test_planes_from_indices_checks_its_rows():
+    none = torch.zeros(0, dtype=torch.int32)
+    with pytest.raises(ValueError):                 # fewer rows than steps
+        planes_from_indices(none, torch.zeros(9, dtype=torch.int32), 1, 2, 5)
+    with pytest.raises(ValueError):                 # not 4K + 1 offsets
+        planes_from_indices(none, torch.zeros(8, dtype=torch.int32), 2, 2, 5)
 
 
 # ---------------------------------------------------------------------------

@@ -212,8 +212,9 @@ def test_ring_buffer_overflow_counts_dropped_spans():
 
 
 def test_launch_counts_keep_their_names_and_results():
-    names = ["delta_apply_chain", "delta_apply_fused", "flash_attention",
-             "flash_attention_prefill", "flash_attention_prefill_f32",
+    names = ["delta_apply_chain", "delta_apply_fused", "planes_from_indices",
+             "flash_attention", "flash_attention_prefill",
+             "flash_attention_prefill_f32",
              "flash_attention_decode", "flash_attention_mla",
              "flash_attention_prefill_stats",
              "flash_attention_prefill_f32_stats", "segment_sum_bucketed"]
